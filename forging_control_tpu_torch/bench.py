@@ -181,7 +181,6 @@ def profile_run(N, B, T, preset, backend, *, device="cuda",
     cost does not dilute it.  Also returns the kernel count per control step
     and the ``top`` kernels by device time.
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     device = resolve_device(device)
@@ -195,6 +194,18 @@ def profile_run(N, B, T, preset, backend, *, device="cuda",
     # too would multiply the trace without adding to these sums.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
+    rec = device_busy(prof, wall, top)
+    return {"steps": T, **rec, "kernels_per_step": rec["kernels"] / T}
+
+
+def device_busy(prof, wall_s: float, top: int = 8) -> dict:
+    """Device time of a ``torch.profiler`` trace: the union of its CUDA
+    kernels' intervals (``device_busy_s``), that sum over ``wall_s`` (an
+    untraced run's wall time, so the tracer's host cost does not dilute
+    it), the kernel count, the mean kernel time, and the ``top`` kernels by
+    device time."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -207,12 +218,10 @@ def profile_run(N, B, T, preset, backend, *, device="cuda",
     busy_s = busy_us / 1e6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {
-        "steps": T,
-        "wall_s": wall,
+        "wall_s": wall_s,
         "device_busy_s": busy_s,
-        "device_busy_share": busy_s / wall,
+        "device_busy_share": busy_s / wall_s,
         "kernels": len(spans),
-        "kernels_per_step": len(spans) / T,
         "mean_kernel_us": busy_us / max(1, len(spans)),
         "top_kernels": [{"name": n[:80], "count": c, "ms": us / 1e3}
                         for n, (c, us) in ranked],

@@ -1,9 +1,10 @@
 """State carried across between the JAX package and the port.
 
-This system has no learned weights on the MPC path: its "parameters" are
-the configuration dataclasses and the solver warm-start state.  The
-converters take plain Python / NumPy data (``dataclasses.asdict`` of the
-JAX package's objects, ``numpy.asarray`` of its arrays), so this module
+The MPC path has no learned weights: its "parameters" are the
+configuration dataclasses and the solver warm-start state.  The surrogate
+chain has the LSTM's weights and the feature scaler.  The converters take
+plain Python / NumPy data (``dataclasses.asdict`` of the JAX package's
+objects, ``numpy.asarray`` of its arrays) and give it back, so this module
 imports nothing of the JAX package.
 """
 
@@ -16,6 +17,8 @@ import torch
 
 from .device import resolve_device
 from .loop.closed_loop import LoopConfig, MPCController, Telemetry
+from .nn.lstm import LSTMSurrogate
+from .nn.scalers import Scaler
 from .physics.press import PressParams
 from .solver.riccati import ILQRState
 from .solver.sqp import MPCConfig, SolverState
@@ -71,8 +74,9 @@ def mpc_controller_from_dict(d: dict) -> MPCController:
 
 def _tensor(a, dtype, device):
     # np.array copies: JAX hands out read-only buffers, and the tensor must
-    # own writable memory.
-    return torch.as_tensor(np.array(a), dtype=dtype,
+    # own writable memory.  Row-major, because JAX's arrays (and npz files
+    # saved from them) may be column-major, and the kernels read row-major.
+    return torch.as_tensor(np.array(a, order="C"), dtype=dtype,
                            device=resolve_device(device))
 
 
@@ -97,3 +101,42 @@ def telemetry_to_numpy(telem: Telemetry) -> dict:
     out = {k: np_(getattr(telem, k)) for k in Telemetry._fields if k != "diag"}
     out["diag"] = {k: np_(v) for k, v in telem.diag._asdict().items()}
     return out
+
+
+def lstm_params_from_numpy(params: dict, *, dtype=None,
+                           device="cuda") -> LSTMSurrogate:
+    """The port's surrogate from the JAX package's LSTM params pytree
+    (``{"layers": [{"w_ih", "w_hh"}, ...], "w_out"}`` and an optional
+    ``"b_out"``) as NumPy arrays; ``dtype`` defaults to the arrays'."""
+    def t(a):
+        return _tensor(a, dtype, device)
+    b_out = params.get("b_out")
+    return LSTMSurrogate([t(l["w_ih"]) for l in params["layers"]],
+                         [t(l["w_hh"]) for l in params["layers"]],
+                         t(params["w_out"]),
+                         None if b_out is None else t(b_out))
+
+
+def lstm_params_to_numpy(model: LSTMSurrogate) -> dict:
+    """The JAX package's LSTM params pytree, as NumPy arrays, of ``model``."""
+    w_ih, w_hh, w_out, b_out = model.weights()
+
+    def np_(p):
+        return p.detach().cpu().numpy()
+    out = {"layers": [{"w_ih": np_(a), "w_hh": np_(b)}
+                      for a, b in zip(w_ih, w_hh)],
+           "w_out": np_(w_out)}
+    if b_out is not None:
+        out["b_out"] = np_(b_out)
+    return out
+
+
+def scaler_from_numpy(scaler, *, dtype=None, device="cuda") -> Scaler:
+    """``Scaler`` from the JAX package's (shift, scale) pair of arrays."""
+    shift, scale = scaler
+    return Scaler(_tensor(shift, dtype, device), _tensor(scale, dtype, device))
+
+
+def scaler_to_numpy(scaler: Scaler) -> tuple:
+    """(shift, scale) as NumPy arrays, the JAX package's ``Scaler`` leaves."""
+    return tuple(a.detach().cpu().numpy() for a in scaler)

@@ -15,8 +15,15 @@ _PROBE = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 import forging_control_tpu_torch
-from forging_control_tpu_torch import bench, dual, interop
-from forging_control_tpu_torch.ops import build, smallchol
+from forging_control_tpu_torch import bench, cli, dual, interop
+from forging_control_tpu_torch import __main__
+from forging_control_tpu_torch.eval import metrics
+from forging_control_tpu_torch.nn import (datasets, lstm, scalers,
+                                          surrogate_eval, train)
+from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
+from forging_control_tpu_torch.pipelines import (config, generate_data,
+                                                 surrogate)
+from forging_control_tpu_torch.utils import checkpoint
 import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m == "forging_control_tpu"
