@@ -11,12 +11,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -104,3 +107,36 @@ def load(name: str) -> Built:
     if name not in _loaded:
         build_all([name])
     return _loaded[name]
+
+
+@functools.cache
+def entry(name: str, symbol: str, argtypes: tuple):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` with its
+    ``argtypes`` set and an ``int`` result (a ``cudaError_t``), bound once
+    per process; the library is built at the first call."""
+    fn = getattr(load(name).lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def current_stream_handle(index: int) -> int:
+    """The ``cudaStream_t`` of device ``index``'s current stream (the
+    capture stream inside ``torch.cuda.graph``), as an int: what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without building
+    a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(what: str, fn, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` with ``device``'s current stream last; enters
+    a device context only when ``device`` is not the current device.
+    Raises if the entry point returns a CUDA error."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            rc = fn(*args, current_stream_handle(index))
+    else:
+        rc = fn(*args, current_stream_handle(index))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

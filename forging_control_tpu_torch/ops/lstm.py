@@ -9,8 +9,12 @@ Port of ``forging_control_tpu/ops/lstm_pallas.py``.  Three functions:
   differentiable forward that training runs (``nn.lstm.LSTMSurrogate``).
 * :func:`lstm_forward_cuda` — the wrapper of the hand-written CUDA kernel
   ``csrc/lstm.cu`` (the counterpart of ``apply_pallas``).  It checks its
-  inputs, allocates the output, launches on the current stream and counts
-  its launches in ``lstm_forward_cuda.launches``.  Forward only, like
+  inputs, picks the kernel's variant with :func:`variant` (by shape and
+  dtype alone: the tensor-core 3xTF32 ``"mma"`` kernel for float32 at
+  H <= 64 when its block fits in shared memory, the general ``"simt"``
+  kernel otherwise), allocates the output, launches on the current stream
+  and counts its launches in ``lstm_forward_cuda.launches`` and, per
+  variant, in ``lstm_forward_cuda.variant_launches``.  Forward only, like
   ``apply_pallas``: it refuses inputs that require a gradient.
 * :func:`lstm_forward` — dispatch on the input's device: a CPU tensor takes
   the plain version, a CUDA tensor the kernel, anything else raises.
@@ -28,9 +32,11 @@ import torch
 
 from . import build
 
-MAX_HIDDEN = 256      # 4H gate columns, one thread each, <= 1024 threads
+MAX_HIDDEN = 256      # simt: 4H gate columns, one thread each, <= 1024
 MAX_LAYERS = 16
-ROWS = 8              # batch rows per block (kRows in csrc/lstm.cu)
+ROWS = 8              # simt: batch rows per block (kRows in csrc/lstm.cu)
+MMA_ROWS = 32         # mma: batch rows per block (kMmaRows)
+MMA_MAX_HIDDEN = 64   # mma: 8 hidden units per warp, at most 8 warps
 MAX_SMEM = 232448     # bytes of shared memory a block can use on Hopper
 
 
@@ -54,25 +60,41 @@ def lstm_forward_torch(x, w_ih, w_hh, w_out, b_out=None):
     return out
 
 
-_SYMBOLS = {torch.float32: "fct_lstm_forward_f32",
-            torch.float64: "fct_lstm_forward_f64"}
-
-
-def _kernel(dtype):
-    """The C entry point for ``dtype``, building the library at first use."""
-    fn = getattr(build.load("lstm").lib, _SYMBOLS[dtype])
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr), ptr, ptr,
-                   ptr] + [ctypes.c_int] * 6 + [ptr]
-    fn.restype = ctypes.c_int
-    return fn
+_SYMBOLS = {("mma", torch.float32): "fct_lstm_forward_mma_f32",
+            ("simt", torch.float32): "fct_lstm_forward_f32",
+            ("simt", torch.float64): "fct_lstm_forward_f64"}
+_ARGTYPES = ((ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+              ctypes.POINTER(ctypes.c_void_p)) + (ctypes.c_void_p,) * 3
+             + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 
 
 def smem_bytes(I: int, H: int, L: int, dtype) -> int:
-    """Shared memory of one block: h and c per layer, the gate
-    pre-activations and the input row of ``ROWS`` batch rows."""
+    """Shared memory of one block of the simt variant: h and c per layer,
+    the gate pre-activations and the input row of ``ROWS`` batch rows."""
     item = torch.finfo(dtype).bits // 8
     return item * ROWS * (2 * L * H + 4 * H + I)
+
+
+def smem_bytes_mma(T: int, I: int, H: int) -> int:
+    """Shared memory of one block of the mma variant (``mma_smem_bytes`` in
+    csrc/lstm.cu): one layer's weights in fragment order, K and the gate
+    columns padded to multiples of 8, plus the h sequence ``[T]`` and h
+    double buffer ``[2]`` of ``MMA_ROWS`` rows at a row stride of
+    max(K) + 4 floats."""
+    ki, h8 = -(-I // 8) * 8, -(-H // 8) * 8
+    kmax = max(ki, h8)
+    w_floats = (kmax + h8) // 8 * (4 * h8 // 8) * 64
+    return 4 * (w_floats + (T + 2) * MMA_ROWS * (kmax + 4))
+
+
+def variant(dtype, T: int, I: int, H: int) -> str:
+    """Which kernel takes a call, by shape and dtype alone: ``"mma"`` (the
+    tensor-core 3xTF32 kernel) for float32 with H <= 64 whose block fits in
+    shared memory, ``"simt"`` (the general kernel) for everything else."""
+    if (dtype == torch.float32 and H <= MMA_MAX_HIDDEN
+            and smem_bytes_mma(T, I, H) <= MAX_SMEM):
+        return "mma"
+    return "simt"
 
 
 def _check(x, w_ih, w_hh, w_out, b_out):
@@ -83,7 +105,8 @@ def _check(x, w_ih, w_hh, w_out, b_out):
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("lstm_forward_cuda needs CUDA tensors on one device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    if x.dtype not in _SYMBOLS or any(t.dtype != x.dtype for t in tensors):
+    if (x.dtype not in (torch.float32, torch.float64)
+            or any(t.dtype != x.dtype for t in tensors)):
         raise TypeError("lstm_forward_cuda takes float32 or float64 tensors "
                         f"of one dtype, got "
                         f"{sorted({str(t.dtype) for t in tensors})}")
@@ -112,13 +135,14 @@ def _check(x, w_ih, w_hh, w_out, b_out):
             f"b_out {None if b_out is None else tuple(b_out.shape)}")
     if T < 1:
         raise ValueError("lstm_forward_cuda needs T >= 1 timesteps")
-    if smem_bytes(I, H, L, x.dtype) > MAX_SMEM:
+    kind = variant(x.dtype, T, I, H)
+    if kind == "simt" and smem_bytes(I, H, L, x.dtype) > MAX_SMEM:
         raise ValueError(f"lstm_forward_cuda: I={I}, H={H}, L={L} need "
                          f"{smem_bytes(I, H, L, x.dtype)} B of shared memory,"
                          f" more than a block's {MAX_SMEM}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lstm_forward_cuda takes contiguous tensors")
-    return B, T, I, H, L, O
+    return kind, (B, T, I, H, L, O)
 
 
 def lstm_forward_cuda(x: torch.Tensor, w_ih, w_hh, w_out: torch.Tensor,
@@ -129,23 +153,23 @@ def lstm_forward_cuda(x: torch.Tensor, w_ih, w_hh, w_out: torch.Tensor,
     float64) on one device, with 1 <= H <= 256 and 1 <= L <= 16, and none may
     require a gradient.
     """
-    B, T, I, H, L, O = _check(x, w_ih, w_hh, w_out, b_out)
-    fn = _kernel(x.dtype)
+    kind, shape = _check(x, w_ih, w_hh, w_out, b_out)
+    B, L, O = shape[0], shape[4], shape[5]
+    fn = build.entry("lstm", _SYMBOLS[kind, x.dtype], _ARGTYPES)
     out = x.new_empty(B, O)
     ptrs = ctypes.c_void_p * L
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), ptrs(*(w.data_ptr() for w in w_ih)),
-                ptrs(*(w.data_ptr() for w in w_hh)), w_out.data_ptr(),
-                None if b_out is None else b_out.data_ptr(), out.data_ptr(),
-                B, T, I, H, L, O, stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm kernel launch failed: CUDA error {rc}")
+    build.launch("lstm", fn, x.device, x.data_ptr(),
+                 ptrs(*(w.data_ptr() for w in w_ih)),
+                 ptrs(*(w.data_ptr() for w in w_hh)), w_out.data_ptr(),
+                 None if b_out is None else b_out.data_ptr(), out.data_ptr(),
+                 *shape)
     lstm_forward_cuda.launches += 1
+    lstm_forward_cuda.variant_launches[kind] += 1
     return out
 
 
 lstm_forward_cuda.launches = 0
+lstm_forward_cuda.variant_launches = {"mma": 0, "simt": 0}
 
 
 def lstm_forward(x: torch.Tensor, w_ih, w_hh, w_out: torch.Tensor,

@@ -7,13 +7,18 @@ launches on the card.  :func:`probe_torch` is its plain version,
 ``probe_cuda.launches``), and :func:`main` builds and runs it once and
 prints ONE JSON line with the outcome:
 
-    python -m forging_control_tpu_torch.ops.probe
+    python -m forging_control_tpu_torch.ops.probe [--host-us]
+
+``--host-us`` adds to that line the host microseconds per call of the
+wrapper, of ``torch.add`` and of the pieces of the wrapper's host cost
+(:func:`host_breakdown`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import statistics
 import sys
 import time
 
@@ -27,6 +32,9 @@ def probe_torch(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0 + 1.0
 
 
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+
+
 def probe_cuda(x: torch.Tensor) -> torch.Tensor:
     """Hand-written CUDA kernel: x * 2 + 1 for a contiguous float32 CUDA
     tensor."""
@@ -36,16 +44,10 @@ def probe_cuda(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"probe_cuda takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("probe_cuda takes a contiguous tensor")
-    fn = build.load("probe").lib.fct_probe_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("probe", "fct_probe_f32", _ARGTYPES)
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"probe kernel launch failed: CUDA error {rc}")
+    build.launch("probe", fn, x.device, x.data_ptr(), y.data_ptr(),
+                 x.numel())
     probe_cuda.launches += 1
     return y
 
@@ -53,7 +55,36 @@ def probe_cuda(x: torch.Tensor) -> torch.Tensor:
 probe_cuda.launches = 0
 
 
-def main() -> int:
+def host_breakdown(x: torch.Tensor, n: int = 200, rounds: int = 5) -> dict:
+    """Host microseconds per call of ``probe_cuda(x)``, of ``torch.add`` on
+    x, and of the pieces of the wrapper's host cost: the median over
+    ``rounds`` rounds, in which each takes its turn, of a ``perf_counter``
+    over n calls without a synchronise."""
+    one = torch.ones((), device=x.device)
+    index = x.device.index
+    pieces = {
+        "probe_cuda": lambda: probe_cuda(x),
+        "torch.add": lambda: torch.add(one, x, alpha=2.0),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "build.current_stream_handle":
+            lambda: build.current_stream_handle(index),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream}
+    times = {name: [] for name in pieces}
+    for fn in pieces.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in pieces.items():
+            torch.cuda.synchronize(x.device)
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[name].append((time.perf_counter() - t) / n * 1e6)
+    torch.cuda.synchronize(x.device)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def main(host_us: bool = False) -> int:
     device = resolve_device("cuda")
     x = torch.arange(8 * 128, dtype=torch.float32,
                      device=device).reshape(8, 128)
@@ -61,11 +92,13 @@ def main() -> int:
     y = probe_cuda(x)
     torch.cuda.synchronize(device)
     ok = bool(torch.equal(y, probe_torch(x)))
-    print(json.dumps({"ok": ok, "device": torch.cuda.get_device_name(device),
-                      "build_plus_run_s": round(time.perf_counter() - t0,
-                                                2)}))
+    rec = {"ok": ok, "device": torch.cuda.get_device_name(device),
+           "build_plus_run_s": round(time.perf_counter() - t0, 2)}
+    if host_us:
+        rec["host_us"] = host_breakdown(x)
+    print(json.dumps(rec))
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(host_us="--host-us" in sys.argv[1:]))

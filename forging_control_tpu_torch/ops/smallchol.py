@@ -67,15 +67,7 @@ def chol_solve_torch(H, g):
 
 _SYMBOLS = {torch.float32: "fct_chol_solve_f32",
             torch.float64: "fct_chol_solve_f64"}
-
-
-def _kernel(dtype):
-    """The C entry point for ``dtype``, building the library at first use."""
-    fn = getattr(build.load("smallchol").lib, _SYMBOLS[dtype])
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ptr]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
 
 
 def chol_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -103,13 +95,10 @@ def chol_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if H.requires_grad or g.requires_grad:
         raise RuntimeError("chol_solve_cuda has no backward; pass tensors "
                            "that do not require a gradient")
-    fn = _kernel(H.dtype)
+    fn = build.entry("smallchol", _SYMBOLS[H.dtype], _ARGTYPES)
     x = torch.empty_like(g)
-    stream = torch.cuda.current_stream(H.device).cuda_stream
-    with torch.cuda.device(H.device):
-        rc = fn(H.data_ptr(), g.data_ptr(), x.data_ptr(), B, N, stream)
-    if rc != 0:
-        raise RuntimeError(f"smallchol kernel launch failed: CUDA error {rc}")
+    build.launch("smallchol", fn, H.device, H.data_ptr(), g.data_ptr(),
+                 x.data_ptr(), B, N)
     chol_solve_cuda.launches += 1
     return x
 

@@ -1,5 +1,6 @@
-"""Kernels B2 (LSTM forward) and B3 (toolchain probe) against their plain
-PyTorch versions on a card (``gpu`` marker; skips without one).
+"""Kernels B1 (small Cholesky solve), B2 (LSTM forward) and B3 (toolchain
+probe) against their plain PyTorch versions on a card (``gpu`` marker;
+skips without one).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports jax, so run it
@@ -8,12 +9,13 @@ there without the conftest:
     python -m pytest -p no:cacheprovider --noconftest -q tests/test_torch_kernels_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
 from forging_control_tpu_torch.nn import lstm
 from forging_control_tpu_torch.ops import lstm as lstm_ops
-from forging_control_tpu_torch.ops import probe
+from forging_control_tpu_torch.ops import probe, smallchol
 
 
 def _need_card():
@@ -22,11 +24,70 @@ def _need_card():
                     "mode (their plain versions are tested on the CPU)")
 
 
+def _random_spd(rng, B, N):
+    A = rng.randn(B, N, N)
+    H = A @ np.transpose(A, (0, 2, 1)) + N * np.eye(N)
+    g = rng.randn(B, N)
+    return H, g
+
+
+@pytest.mark.gpu
+def test_torch_chol_kernel_matches_plain_on_gpu():
+    """CUDA kernel vs plain version on the card, float32 and float64,
+    N in {1, 5, 10, 17, 21, 25} (N >= 17 spilled in the first design),
+    batches below one block of 32 systems and not a multiple of it, views
+    at an offset that is not 16-byte aligned; the wrapper's checks."""
+    _need_card()
+    rng = np.random.RandomState(5)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
+        for N in (1, 5, 10, 17, 21, 25):
+            for B in (1, 33, 127, 300, 12288):
+                H, g = _random_spd(rng, B, N)
+                Ht = torch.from_numpy(H).to("cuda", dtype)
+                gt = torch.from_numpy(g).to("cuda", dtype)
+                got = smallchol.chol_solve_cuda(Ht, gt)
+                want = smallchol.chol_solve_torch(Ht, gt)
+                torch.cuda.synchronize()
+                # H = AA^T + N I has condition number below ~10: the two
+                # differ by rounding only.
+                torch.testing.assert_close(got, want, rtol=rtol,
+                                           atol=rtol * want.abs().max().item())
+        # Contiguous views at an offset that is not a multiple of 16 bytes
+        # (odd N): the kernel stages them element by element.
+        for N in (5, 25):
+            H, g = _random_spd(rng, 301, N)
+            Ht = torch.from_numpy(H).to("cuda", dtype)[1:]
+            gt = torch.from_numpy(g).to("cuda", dtype)[1:]
+            assert Ht.is_contiguous() and Ht.data_ptr() % 16 != 0
+            assert gt.data_ptr() % 16 != 0
+            got = smallchol.chol_solve_cuda(Ht, gt)
+            want = smallchol.chol_solve_torch(Ht, gt)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=rtol,
+                                       atol=rtol * want.abs().max().item())
+    Ht = torch.from_numpy(H).cuda()
+    gt = torch.from_numpy(g).cuda()
+    with pytest.raises(ValueError, match="contiguous"):
+        smallchol.chol_solve_cuda(Ht.transpose(1, 2), gt)
+    with pytest.raises(TypeError):
+        smallchol.chol_solve_cuda(Ht.half(), gt.half())
+    with pytest.raises(ValueError, match="N <= 25"):
+        smallchol.chol_solve_cuda(torch.eye(26, device="cuda")[None],
+                                  torch.ones(1, 26, device="cuda"))
+    with pytest.raises(RuntimeError, match="backward"):
+        smallchol.chol_solve_cuda(Ht.requires_grad_(), gt)
+
+
 @pytest.mark.gpu
 def test_torch_lstm_kernel_matches_plain_on_gpu():
     """float32 (the JAX package's bound for apply_pallas, rtol 2e-5 / atol
     2e-6) and float64 (1e-12); full width and small widths, ragged batches,
-    no readout bias; one launch per ``infer``."""
+    no readout bias, both sides of the boundary between the mma and simt
+    variants in H (56 and 57 at T = 10) and in T (9 and 10 at H = 64; 148
+    and 149 at H = 8, where the mma block takes exactly 232448 bytes), so
+    that the shapes ``lstm_ops.variant`` sends to the mma kernel at its
+    edges launch there; one launch per ``infer``, of the variant that
+    ``lstm_ops.variant`` names."""
     _need_card()
     from forging_control_tpu_torch.device import resolve_device
     resolve_device("cuda")                      # TF32 off for the plain @
@@ -34,15 +95,22 @@ def test_torch_lstm_kernel_matches_plain_on_gpu():
     for dtype, rtol, atol in ((torch.float32, 2e-5, 2e-6),
                               (torch.float64, 1e-12, 1e-12)):
         for H, L, T, bias in ((50, 3, 10, True), (50, 3, 10, False),
-                              (16, 2, 6, True), (256, 2, 3, True)):
+                              (16, 2, 6, True), (256, 2, 3, True),
+                              (56, 3, 10, True), (57, 3, 10, True),
+                              (64, 2, 9, True), (64, 2, 10, True),
+                              (8, 2, 148, True), (8, 2, 149, True)):
             model = lstm.init(gen, 5, H, L, 4, dtype=dtype, device="cuda",
                               readout_bias=bias)
+            kind = lstm_ops.variant(dtype, T, 5, H)
             for B in (1, 37, 300, 2053):
                 x = torch.randn(B, T, 5, generator=gen,
                                 dtype=torch.float64).to("cuda", dtype)
                 launches = lstm_ops.lstm_forward_cuda.launches
+                by_kind = lstm_ops.lstm_forward_cuda.variant_launches[kind]
                 got = model.infer(x)
                 assert lstm_ops.lstm_forward_cuda.launches == launches + 1
+                assert (lstm_ops.lstm_forward_cuda.variant_launches[kind]
+                        == by_kind + 1)
                 want = model(x).detach()
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, rtol=rtol, atol=atol)

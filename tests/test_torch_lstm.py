@@ -148,3 +148,84 @@ def test_torch_probe_plain_and_wrapper_checks():
     assert torch.equal(probe.probe_torch(x), x * 2 + 1)
     with pytest.raises(ValueError, match="CUDA"):
         probe.probe_cuda(x)
+
+
+def _tf32(a):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _lstm_forward_with(x, w_ih, w_hh, w_out, b_out, matmul):
+    """lstm_forward_torch with its gate products taken by ``matmul``."""
+    H = w_hh[0].shape[0]
+    h = [x.new_zeros(x.shape[0], H) for _ in w_hh]
+    c = [x.new_zeros(x.shape[0], H) for _ in w_hh]
+    for t in range(x.shape[1]):
+        inp = x[:, t]
+        for l, (wi, wh) in enumerate(zip(w_ih, w_hh)):
+            i, f, g, o = (matmul(inp, wi) + matmul(h[l], wh)).split(H, -1)
+            c[l] = torch.sigmoid(f) * c[l] + torch.sigmoid(i) * torch.tanh(g)
+            h[l] = torch.sigmoid(o) * torch.tanh(c[l])
+            inp = h[l]
+    return h[-1] @ w_out + b_out
+
+
+def test_torch_lstm_3xtf32_products_meet_the_float32_bound():
+    """The accuracy argument of the mma variant of kernel B2, emulated on
+    the CPU: with the recorded surrogate (results_repro/surrogate_params.npz)
+    at full width on 4,000 random windows, gate products taken as three
+    TF32 passes (a_lo b_hi + a_hi b_lo + a_hi b_hi, a_hi = tf32(a),
+    a_lo = tf32(a - a_hi), float32 sums; TF32 products are exact in
+    float32) stay within the float32 bound of the JAX package, rtol 2e-5 /
+    atol 2e-6 against lstm_forward_torch; one TF32 pass does not."""
+    from forging_control_tpu_torch.utils import checkpoint
+    model, _ = checkpoint.load_surrogate(
+        "results_repro/surrogate_params.npz", device="cpu")
+    w_ih, w_hh, w_out, b_out = model.weights()
+    w = ([a.detach() for a in w_ih], [a.detach() for a in w_hh],
+         w_out.detach(), b_out.detach())
+    assert w_out.dtype == torch.float32 and tuple(w_out.shape) == (50, 4)
+    x = torch.from_numpy(
+        np.random.RandomState(0).rand(4000, 10, 5).astype(np.float32))
+    want = lstm_ops.lstm_forward_torch(x, *w)
+
+    def one_pass(a, b):
+        return _tf32(a) @ _tf32(b)
+
+    def three_pass(a, b):
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    def excess(got):
+        return ((got - want).abs() - (2e-6 + 2e-5 * want.abs())).max().item()
+    assert excess(_lstm_forward_with(x, *w, three_pass)) <= 0
+    assert excess(_lstm_forward_with(x, *w, one_pass)) > 1e-4
+
+
+def test_torch_lstm_kernel_variant_by_shape_and_dtype():
+    """The main path's float32 shape (T = 10, I = 5, H = 50) takes the mma
+    kernel; float64 and H = 256 the simt kernel; the boundary at T = 10 lies
+    between H = 56 and H = 57, where the mma block outgrows shared memory:
+    one layer's fragments (14 k-steps x 28 n8 tiles x 64 floats) and the h
+    sequence and double buffer (12 x 32 rows x 60 floats), 4 bytes each."""
+    f32, f64 = torch.float32, torch.float64
+    assert lstm_ops.smem_bytes_mma(10, 5, 50) == 4 * (14 * 28 * 64
+                                                      + 12 * 32 * 60)
+    assert lstm_ops.smem_bytes_mma(10, 5, 56) <= lstm_ops.MAX_SMEM
+    assert lstm_ops.smem_bytes_mma(10, 5, 57) > lstm_ops.MAX_SMEM
+    assert lstm_ops.variant(f32, 10, 5, 50) == "mma"
+    assert lstm_ops.variant(f32, 10, 5, 56) == "mma"
+    assert lstm_ops.variant(f32, 10, 5, 57) == "simt"
+    assert lstm_ops.variant(f32, 6, 5, 16) == "mma"
+    assert lstm_ops.variant(f64, 10, 5, 50) == "simt"
+    assert lstm_ops.variant(f32, 3, 5, 256) == "simt"
+    assert lstm_ops.variant(f32, 300, 5, 50) == "simt"     # T too long
+    # The edges in T that tests/test_torch_kernels_gpu.py runs on the card.
+    assert lstm_ops.variant(f32, 9, 5, 64) == "mma"
+    assert lstm_ops.variant(f32, 10, 5, 64) == "simt"
+    assert lstm_ops.smem_bytes_mma(148, 5, 8) == lstm_ops.MAX_SMEM
+    assert lstm_ops.variant(f32, 148, 5, 8) == "mma"
+    assert lstm_ops.variant(f32, 149, 5, 8) == "simt"

@@ -2,8 +2,8 @@
 
 On the CPU: the plain version against ``torch.linalg.solve``, the JAX
 package's jnp ``chol_solve`` and its Pallas kernel in interpret mode, and
-the wrapper's checks.  On a card (``gpu`` marker): the CUDA kernel against
-the plain version.
+the wrapper's checks.  The CUDA kernel is held against the plain version on
+a card by the jax-free tests/test_torch_kernels_gpu.py.
 """
 
 import jax.numpy as jnp
@@ -80,37 +80,3 @@ def test_torch_chol_kernel_wrapper_refuses_cpu_tensors():
     H, g = _random_spd(np.random.RandomState(4), 4, 5)
     with pytest.raises(ValueError, match="CUDA"):
         smallchol.chol_solve_cuda(torch.from_numpy(H), torch.from_numpy(g))
-
-
-@pytest.mark.gpu
-def test_torch_chol_kernel_matches_plain_on_gpu():
-    """CUDA kernel vs plain version on the card, float32 and float64,
-    N in {1, 5, 10, 25}, ragged batches; the wrapper's checks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret "
-                    "mode (its plain version is tested on the CPU)")
-    rng = np.random.RandomState(5)
-    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
-        for N in (1, 5, 10, 25):
-            for B in (1, 127, 300, 12288):
-                H, g = _random_spd(rng, B, N)
-                Ht = torch.from_numpy(H).to("cuda", dtype)
-                gt = torch.from_numpy(g).to("cuda", dtype)
-                got = smallchol.chol_solve_cuda(Ht, gt)
-                want = smallchol.chol_solve_torch(Ht, gt)
-                torch.cuda.synchronize()
-                # H = AA^T + N I has condition number below ~10: the two
-                # differ by rounding only.
-                torch.testing.assert_close(got, want, rtol=rtol,
-                                           atol=rtol * want.abs().max().item())
-    Ht = torch.from_numpy(H).cuda()
-    gt = torch.from_numpy(g).cuda()
-    with pytest.raises(ValueError, match="contiguous"):
-        smallchol.chol_solve_cuda(Ht.transpose(1, 2), gt)
-    with pytest.raises(TypeError):
-        smallchol.chol_solve_cuda(Ht.half(), gt.half())
-    with pytest.raises(ValueError, match="N <= 25"):
-        smallchol.chol_solve_cuda(torch.eye(26, device="cuda")[None],
-                                  torch.ones(1, 26, device="cuda"))
-    with pytest.raises(RuntimeError, match="backward"):
-        smallchol.chol_solve_cuda(Ht.requires_grad_(), gt)
