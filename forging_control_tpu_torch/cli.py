@@ -1,18 +1,21 @@
 """Command-line entry points of the port.
 
 Port of the ported subcommands of ``forging_control_tpu/cli.py``
-(``:78-151``), with the same flags and the same single JSON line of
-results, printed to standard output:
+(``:78-151``, ``:213-239``), with the same flags and the same single JSON
+line of results, printed to standard output:
 
-    python -m forging_control_tpu_torch generate  --n-traj 80 --horizon 25 --noise
-    python -m forging_control_tpu_torch surrogate --data 'data/*.npz' --epochs 50
+    python -m forging_control_tpu_torch generate   --n-traj 80 --horizon 25 --noise
+    python -m forging_control_tpu_torch supervised --data data/....npz --feasibility
+    python -m forging_control_tpu_torch surrogate  --data 'data/*.npz' --epochs 50
 
 Every subcommand runs on ``--device`` (default ``cuda``; ``cpu`` only when
 asked).  ``surrogate`` reads its files in ``sorted(glob)`` order per
 pattern, as the JAX package's CLI does (so ``N_10`` comes before ``N_5``).
-The other subcommands, ``--plots`` (``eval/html_dash``, ``eval/plots``)
-and ``--export-pkl`` (``utils/dompc_pickle``) wait for their modules
-(ROADMAP Queue A 11, 12, 14) and are refused with a message.
+The other subcommands, ``supervised --train-mode dagger``
+(``nn.train.train_dagger``), ``--plots`` (``eval/html_dash``,
+``eval/plots``) and ``--export-pkl`` (``utils/dompc_pickle``) wait for
+their modules (ROADMAP Queue A 10, 11, 12, 14) and are refused with a
+message.
 """
 
 from __future__ import annotations
@@ -27,7 +30,12 @@ from .pipelines import config as pcfg
 
 
 def _flags(args) -> pcfg.Flags:
-    return pcfg.Flags(enable_noise=args.noise, silence_solver=True)
+    return pcfg.Flags(
+        enable_noise=args.noise,
+        enable_training=not getattr(args, "no_training", False),
+        enable_feasibility=getattr(args, "feasibility", False),
+        silence_solver=True,
+    )
 
 
 def _emit(rec: dict) -> None:
@@ -52,6 +60,19 @@ def cmd_generate(args):
     summ["wall_s"] = round(wall_s, 2)
     summ["solves"] = cfg.n_traj * cfg.t_traj
     _emit({"dataset": path, **summ})
+
+
+def cmd_supervised(args):
+    from .pipelines import generate_data, supervised
+    results = generate_data.load(args.data)
+    cfg = pcfg.SupervisedConfig(
+        horizon=args.horizon, epochs=args.epochs, n_seeds=args.seeds,
+        backend=args.backend, train_mode=args.train_mode, flags=_flags(args))
+    art = supervised.run(results, cfg, seed=args.seed,
+                         closed_loop_eval=not args.no_eval, out_dir=args.out,
+                         device=args.device)
+    _emit({"test": art.test_metrics, "mpc": art.mpc_metrics,
+           "nn": art.nn_metrics})
 
 
 def cmd_surrogate(args):
@@ -100,6 +121,25 @@ def main(argv=None):
                    help="not ported yet (utils/dompc_pickle)")
     g.set_defaults(fn=cmd_generate)
 
+    sv = sub.add_parser("supervised", help="FNN imitation training + eval")
+    common(sv)
+    sv.add_argument("--data", required=True)
+    sv.add_argument("--horizon", type=int, default=10)
+    sv.add_argument("--epochs", type=int, default=20)
+    sv.add_argument("--feasibility", action="store_true")
+    sv.add_argument("--no-training", action="store_true")
+    sv.add_argument("--no-eval", action="store_true")
+    sv.add_argument("--seeds", type=int, default=1,
+                    help="training replicas; best by closed-loop val MAE")
+    sv.add_argument("--backend", default="auto",
+                    choices=["auto", "sqp", "ilqr"],
+                    help="MPC baseline solver backend (see generate)")
+    sv.add_argument("--train-mode", default="imitation",
+                    choices=["imitation", "dagger"],
+                    help="imitation = reference one-shot cloning; dagger is "
+                         "not ported yet")
+    sv.set_defaults(fn=cmd_supervised)
+
     sg = sub.add_parser("surrogate", help="LSTM surrogate training")
     common(sg)
     sg.add_argument("--data", nargs="+", required=True)
@@ -111,6 +151,9 @@ def main(argv=None):
     if args.plots:
         p.error("--plots needs eval/html_dash and eval/plots, which the port "
                 "does not have yet (ROADMAP Queue A 12)")
+    if getattr(args, "train_mode", None) == "dagger":
+        p.error("--train-mode dagger needs nn.train.train_dagger, which the "
+                "port does not have yet (ROADMAP Queue A 10)")
     if getattr(args, "export_pkl", False):
         p.error("--export-pkl needs utils/dompc_pickle, which the port does "
                 "not have yet (ROADMAP Queue A 14)")

@@ -2,7 +2,8 @@
 
 The MPC path has no learned weights: its "parameters" are the
 configuration dataclasses and the solver warm-start state.  The surrogate
-chain has the LSTM's weights and the feature scaler.  The converters take
+chain has the LSTM's weights and the feature scaler; the supervised chain
+the FNN controller's weights and its two scalers.  The converters take
 plain Python / NumPy data (``dataclasses.asdict`` of the JAX package's
 objects, ``numpy.asarray`` of its arrays) and give it back, so this module
 imports nothing of the JAX package.
@@ -129,6 +130,21 @@ def lstm_params_to_numpy(model: LSTMSurrogate) -> dict:
     if b_out is not None:
         out["b_out"] = np_(b_out)
     return out
+
+
+FNN_KEYS = ("b_in", "b_int", "w_in", "w_int", "w_out")
+
+
+def fnn_params_from_numpy(params: dict, *, dtype=None, device="cuda") -> dict:
+    """The port's FNN params (a dict of tensors in the same layout) from the
+    JAX package's ``fnn.init`` pytree of NumPy arrays; ``dtype`` defaults
+    to the arrays'."""
+    return {k: _tensor(v, dtype, device) for k, v in params.items()}
+
+
+def fnn_params_to_numpy(params: dict) -> dict:
+    """The JAX package's FNN params pytree, as NumPy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
 def scaler_from_numpy(scaler, *, dtype=None, device="cuda") -> Scaler:

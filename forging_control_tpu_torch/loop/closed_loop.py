@@ -12,13 +12,22 @@ per-scenario vmap path.  Noise comes from an explicit ``torch.Generator``,
 or pre-drawn arrays passed in (the JAX loop's per-step ``jax.random.split``
 cannot be reproduced in torch, so parity runs feed the JAX run's recorded
 ``Telemetry.w``).
+
+The single-stream side (``closed_loop.py:288-505`` of the JAX package):
+:func:`make_stepper` (one control period per call at B = 1),
+:func:`stepper_latency` and :func:`controller_latency_metrics` (per-step
+wall-clock latencies in the reference's table columns), and
+:func:`native_mpc_latency` (the native C++ GN-SQP of ``runtime/`` timed
+step by step against the port's float64 RK4 plant on the CPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .. import dual as ad
@@ -136,6 +145,23 @@ def _noise(std, given, t, generator, B, dtype, device, what):
     return z.to(device) * torch.as_tensor(std, dtype=dtype, device=device)
 
 
+def _plant_step(loop_cfg: LoopConfig, x_true, u, w, v):
+    """One control period of the plant: RK4 of f(x, u) + w from the true
+    state (clamped if the config says so), then the measurement + v.
+    Returns (x_next, x_meas_next)."""
+    def f(x, uu):
+        return press.rhs(x, uu, loop_cfg.params, loop_cfg.variant)
+
+    x_next = rk4_step(f, x_true, u, loop_cfg.dt, loop_cfg.substeps,
+                      disturbance=w)
+    if loop_cfg.state_clip is not None:
+        lim = torch.as_tensor(loop_cfg.state_clip, dtype=x_next.dtype,
+                              device=x_next.device)
+        x_next = ad.clip(torch.nan_to_num(x_next), -lim, lim)
+    return x_next, press.measure(x_next, loop_cfg.params,
+                                 loop_cfg.variant) + v
+
+
 def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
               generator: torch.Generator | None = None, *,
               process_noise=None, meas_noise=None, u_init: float = 0.0,
@@ -171,9 +197,6 @@ def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
     if meas_noise is not None:
         meas_noise = torch.as_tensor(meas_noise, device=device).to(dtype)
 
-    def f(x, u):
-        return press.rhs(x, u, loop_cfg.params, loop_cfg.variant)
-
     x_true = x0
     x_meas = press.measure(x0, loop_cfg.params, loop_cfg.variant)
     carry = controller.init_carry_batch(B, dtype, device)
@@ -191,13 +214,7 @@ def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
         v = _noise(loop_cfg.meas_std, meas_noise, t, generator, B, dtype,
                    device, "measurement")
 
-        x_next = rk4_step(f, x_true, u0, loop_cfg.dt, loop_cfg.substeps,
-                          disturbance=w)
-        if loop_cfg.state_clip is not None:
-            lim = torch.as_tensor(loop_cfg.state_clip, dtype=dtype,
-                                  device=device)
-            x_next = ad.clip(torch.nan_to_num(x_next), -lim, lim)
-        x_meas = press.measure(x_next, loop_cfg.params, loop_cfg.variant) + v
+        x_next, x_meas = _plant_step(loop_cfg, x_true, u0, w, v)
         x_true, u_prev = x_next, u0
         for k, val in zip(rec, (x_meas, u0, ref, Fd, w)):
             rec[k].append(val)
@@ -209,3 +226,170 @@ def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
         for vals in zip(*diags)))
     return x_true, Telemetry(**{k: stack(vals) for k, vals in rec.items()},
                              diag=diag)
+
+
+class StepperCarry(NamedTuple):
+    """State of a single-stream stepper between calls (batch axis of 1)."""
+
+    x_true: torch.Tensor      # (1, 5)
+    x_meas: torch.Tensor      # (1, 5)
+    ctrl: object              # the controller's carry at B = 1
+    u_prev: torch.Tensor      # (1,)
+
+
+def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
+                 generator: torch.Generator | None = None,
+                 u_init: float = 0.0, dtype=torch.float32, device="cuda"):
+    """Single-stream deployment stepper: ONE control period per call.
+
+    The reference's ``make_step`` pair (``controller.make_step`` +
+    ``simulator.make_step``, ``Generate Data/Functions.py:335-349``): the
+    controller's ``step_batch`` at B = 1, then one plant period, exactly one
+    iteration of :func:`run_batch`'s loop.  The carry stays on ``device``
+    between calls.
+
+    Returns ``(step, carry0)``; ``step(carry, ref, process_noise=None,
+    meas_noise=None) -> (carry, u)`` with u a 0-d tensor on ``device``.
+    Noise given to ``step`` (5 values, already scaled) replaces the draws;
+    otherwise configured noise is drawn from ``generator``.
+    """
+    device = resolve_device(device)
+    x0 = torch.as_tensor(press.X0_REFERENCE if x0 is None else x0,
+                         dtype=dtype, device=device).reshape(1, 5)
+    carry0 = StepperCarry(
+        x_true=x0,
+        x_meas=press.measure(x0, loop_cfg.params, loop_cfg.variant),
+        ctrl=controller.init_carry_batch(1, dtype, device),
+        u_prev=torch.full((1,), u_init, dtype=dtype, device=device))
+
+    def noise(std, given, what):
+        if given is not None:
+            return torch.as_tensor(given, device=device).to(dtype).reshape(
+                1, 5)
+        return _noise(std, None, 0, generator, 1, dtype, device, what)
+
+    def step(carry: StepperCarry, ref, process_noise=None, meas_noise=None):
+        ref = torch.as_tensor(ref, device=device).to(dtype).reshape(1)
+        u0, ctrl, _ = controller.step_batch(carry.ctrl, carry.x_meas, ref,
+                                            carry.u_prev)
+        u0 = u0.to(dtype)
+        w = noise(loop_cfg.process_std, process_noise, "process")
+        v = noise(loop_cfg.meas_std, meas_noise, "measurement")
+        x_next, x_meas = _plant_step(loop_cfg, carry.x_true, u0, w, v)
+        return StepperCarry(x_next, x_meas, ctrl, u0), u0[0]
+
+    return step, carry0
+
+
+def stepper_latency(loop_cfg: LoopConfig, controller, refs, *,
+                    dtype=torch.float32, x0=None,
+                    generator: torch.Generator | None = None, device="cuda"):
+    """Per-step wall-clock latencies (seconds) of :func:`make_stepper` over
+    the reference stream ``refs`` (T,) on ``device``.
+
+    Each step is timed by ``perf_counter`` around the call and the read of
+    the command to the host (``float(u)``, which waits for the device), the
+    reference's ``do_mpc.tools.Timer`` semantics around ``make_step``
+    (``Generate Data/Functions.py:335-337``).  The first step is the warm-up
+    and is excluded, so the result has ``len(refs) - 1`` entries and the
+    trajectory follows ``refs`` once.  Configured noise is drawn from
+    ``generator``, by default one seeded with 0.
+    """
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    step, carry = make_stepper(loop_cfg, controller, x0=x0,
+                               generator=generator, dtype=dtype,
+                               device=device)
+    if isinstance(refs, torch.Tensor):
+        refs = refs.detach().cpu().numpy()
+    refs = torch.as_tensor(np.asarray(refs, np.float64).ravel(),
+                           device=device).to(dtype)
+    carry, u = step(carry, refs[0])            # warm-up step
+    float(u)
+    times = np.empty(len(refs) - 1)
+    for t in range(1, len(refs)):
+        t1 = time.perf_counter()
+        carry, u = step(carry, refs[t])
+        float(u)
+        times[t - 1] = time.perf_counter() - t1
+    return times
+
+
+def controller_latency_metrics(loop_cfg: LoopConfig, controller, refs, *,
+                               dtype=torch.float32, device="cuda") -> dict:
+    """Reference-format latency columns (ms), measured on the controller.
+
+    Mean/Std/Median/25_perc/75_perc come from the single-stream stepper on
+    the CPU (``device="cpu"``): sequential per-step wall clock of the
+    controller and plant, comparable with the reference's workstation-CPU
+    rows.  When ``device`` is a card, the mean of the same stepper there is
+    added under the JAX package's key ``Tunnel_time``, so the tables keep
+    their schema.  On an H100 that key holds the card stepper's per-step
+    time: the eager launch of every op of one control period from the
+    host and the read of the command back, not a transport to a remote
+    device as on the JAX package's TPU host.
+    """
+    from ..eval import metrics
+
+    out = metrics.latency_stats(stepper_latency(
+        loop_cfg, controller, refs, dtype=dtype, device="cpu"))
+    if resolve_device(device).type == "cuda":
+        t_dev = stepper_latency(loop_cfg, controller, refs, dtype=dtype,
+                                device=device)
+        out["Tunnel_time"] = float(t_dev.mean() * 1e3)
+    return out
+
+
+def native_mpc_latency(loop_cfg: LoopConfig, mpc_cfg, refs, *,
+                       seed: int = 0):
+    """Per-step wall-clock latencies (s) of the native C++ GN-SQP MPC.
+
+    The hard-real-time MPC path (``runtime/src/sqp_solver.h``) driven
+    through the chain's evaluation protocol: per control period the
+    warm-started native solve is timed, then the plant advances one period
+    untimed, the port's float64 RK4 on the CPU with the loop config's
+    process and measurement noise from ``np.random.default_rng(seed)`` (as
+    in the JAX package).  The native solver takes its iteration structure
+    (horizon, GN x AL counts, pressure bounds, AL penalties) from
+    ``mpc_cfg``.
+
+    Returns (x_meas (T, 5), u (T,), times_s (T - 1,)); the first, cold
+    solve is excluded from the latencies, as in :func:`stepper_latency`.
+    Raises ``runtime.NativeBuildError`` when the runtime cannot be built.
+    """
+    from .. import runtime
+
+    mpc = runtime.NativeMPC(
+        horizon=mpc_cfg.horizon, dt=mpc_cfg.dt, substeps=mpc_cfg.substeps,
+        gn_iters=mpc_cfg.gn_iters, al_iters=mpc_cfg.al_iters,
+        p_max=mpc_cfg.p_max, p_min=mpc_cfg.p_min, mu0=mpc_cfg.mu0,
+        mu_factor=mpc_cfg.mu_factor)
+    if isinstance(refs, torch.Tensor):
+        refs = refs.detach().cpu().numpy()
+    refs = np.asarray(refs, np.float64).ravel()
+    rng = np.random.default_rng(seed)
+    p_std = np.asarray(loop_cfg.process_std, np.float64)
+    m_std = np.asarray(loop_cfg.meas_std, np.float64)
+
+    x = torch.tensor(press.X0_REFERENCE, dtype=torch.float64).reshape(1, 5)
+    x_meas = press.measure(x, loop_cfg.params, loop_cfg.variant)[0].numpy()
+    u_prev = 0.0
+    T = len(refs)
+    xs, us, times = np.empty((T, 5)), np.empty(T), np.empty(T - 1)
+    for t in range(T):
+        t0 = time.perf_counter()
+        u, _stats = mpc.step(x_meas, refs[t], u_prev)
+        dt_s = time.perf_counter() - t0
+        if t > 0:
+            times[t - 1] = dt_s
+        w = rng.normal(size=5) * p_std
+        v = rng.normal(size=5) * m_std
+        x, x_meas_t = _plant_step(
+            loop_cfg, x, torch.tensor([u], dtype=torch.float64),
+            torch.from_numpy(w)[None], 0.0)
+        x_meas = x_meas_t[0].numpy() + v
+        xs[t] = x_meas
+        us[t] = u
+        u_prev = u
+    return xs, us, times

@@ -1,2 +1,2 @@
-"""Learning: the LSTM plant surrogate, its scalers, datasets, rollouts
-and training loop."""
+"""Learning: the FNN controller and the LSTM plant surrogate, their
+scalers, datasets, rollouts and training loops."""

@@ -10,7 +10,10 @@ written by either package loads in the other.  orbax is not ported.
 :func:`load_surrogate` reads a ``{"params": ..., "scaler": ...}`` surrogate
 checkpoint (what ``surrogate --save`` writes) into the port's
 ``LSTMSurrogate`` and ``Scaler``, reading the layout from the leaves'
-shapes.
+shapes.  :func:`save_controller` / :func:`load_controller` move the FNN
+controller checkpoint that the supervised pipeline writes
+(``results/NN_controller_*.npz``: the params and both scalers, meta
+``width_dim`` and ``pipeline``).
 """
 
 from __future__ import annotations
@@ -145,3 +148,40 @@ def load_surrogate(path: str, *, dtype=None, device="cuda"):
             "surrogate checkpoint")
     return (interop.lstm_params_from_numpy(p, dtype=dtype, device=device),
             interop.scaler_from_numpy((shift, scale), device="cpu"))
+
+
+def controller_tree(params: dict, in_scaler, out_scaler) -> dict:
+    """The ``{"params": ..., "in_scaler": (shift, scale), "out_scaler":
+    (shift, scale)}`` tree of an FNN controller checkpoint, in the JAX
+    package's layout (leaves ``arr_0..arr_8``: the two scalers' shift and
+    scale, then b_in, b_int, w_in, w_int, w_out)."""
+    return {"params": interop.fnn_params_to_numpy(params),
+            "in_scaler": interop.scaler_to_numpy(in_scaler),
+            "out_scaler": interop.scaler_to_numpy(out_scaler)}
+
+
+def save_controller(path: str, params: dict, in_scaler, out_scaler, *,
+                    width_dim: int = 1, pipeline: str = "supervised") -> None:
+    save(path, controller_tree(params, in_scaler, out_scaler),
+         meta={"width_dim": width_dim, "pipeline": pipeline})
+
+
+def load_controller(path: str, *, dtype=None, device="cuda"):
+    """(params on ``device``, in_scaler, out_scaler on the CPU, meta) from an
+    FNN controller checkpoint written by either package.  ``dtype`` defaults
+    to the stored one; the scalers keep theirs."""
+    like = {"params": dict.fromkeys(interop.FNN_KEYS, 0),
+            "in_scaler": (0, 0), "out_scaler": (0, 0)}
+    tree = load(path, like)
+    p = tree["params"]
+    n_in, hid = p["w_in"].shape
+    ok = (p["w_int"].shape == (hid, hid) and p["b_in"].shape == (hid,)
+          and p["b_int"].shape == (hid,) and p["w_out"].shape[0] == hid
+          and all(a.shape in ((n_in,), ()) for a in tree["in_scaler"]))
+    if not ok:
+        raise ValueError(f"{path}: leaf shapes do not form an FNN controller "
+                         "checkpoint")
+    return (interop.fnn_params_from_numpy(p, dtype=dtype, device=device),
+            interop.scaler_from_numpy(tree["in_scaler"], device="cpu"),
+            interop.scaler_from_numpy(tree["out_scaler"], device="cpu"),
+            load_meta(path))

@@ -31,3 +31,31 @@ def test_torch_run_bench_record_on_cpu():
     json.dumps(rec)
     with pytest.raises(ValueError, match="card"):
         bench.profile_run(5, 3, 1, "fast_5x1", "sqp", device="cpu")
+
+
+def test_torch_device_busy_unions_kernel_intervals():
+    """device_busy reads the trace's raw events: the union of the CUDA
+    kernels' intervals over the untraced wall time; host events do not
+    count."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(kind, t0_us, t1_us, name):
+        return SimpleNamespace(device_type=lambda: kind,
+                               start_ns=lambda: t0_us * 1000,
+                               end_ns=lambda: t1_us * 1000,
+                               name=lambda: name)
+
+    events = [event(DeviceType.CUDA, 0, 10, "a"),
+              event(DeviceType.CUDA, 5, 20, "b"),      # overlaps a
+              event(DeviceType.CUDA, 30, 40, "a"),
+              event(DeviceType.CPU, 0, 100, "cudaLaunchKernel")]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    rec = bench.device_busy(prof, wall_s=1e-4)
+    assert rec["kernels"] == 3
+    assert abs(rec["device_busy_s"] - 30e-6) < 1e-12
+    assert abs(rec["device_busy_share"] - 0.3) < 1e-9
+    assert rec["top_kernels"][0]["name"] == "a"
+    assert rec["top_kernels"][0]["count"] == 2

@@ -1,5 +1,6 @@
-"""Checkpoints move between the JAX package and the port, and the recorded
-surrogate checkpoint gives the JAX package's metrics through the port.
+"""Checkpoints move between the JAX package and the port (the surrogate's
+and the FNN controller's), and the recorded surrogate checkpoint gives the
+JAX package's metrics through the port.
 
 ``results_repro/surrogate_params.npz`` is the JAX package's trained
 surrogate; the five ``results_repro`` datasets, concatenated in the order
@@ -20,6 +21,7 @@ import torch
 
 import chip_smoke
 from forging_control_tpu.nn import datasets as jdatasets
+from forging_control_tpu.nn import fnn as jfnn
 from forging_control_tpu.nn import lstm as jlstm
 from forging_control_tpu.nn import scalers as jscalers
 from forging_control_tpu.nn import surrogate_eval as jsurrogate_eval
@@ -33,6 +35,8 @@ from forging_control_tpu_torch.utils import checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
 RECORDED = REPO / "results_repro" / "surrogate_params.npz"
+RECORDED_CONTROLLER = REPO / "results_repro" / "results" / \
+    "NN_controller_N_10_process_noise.npz"
 
 
 def _jax_like(hidden_dim, num_layers, readout_bias=True):
@@ -174,3 +178,47 @@ def test_torch_recorded_checkpoint_loads_row_major():
         assert not f["arr_7"].flags.c_contiguous
     model, _ = checkpoint.load_surrogate(str(RECORDED), device="cpu")
     assert all(p.is_contiguous() for p in model.parameters())
+
+
+def _jax_controller_like():
+    return {"params": dict.fromkeys(interop.FNN_KEYS, 0),
+            "in_scaler": (0, 0), "out_scaler": (0, 0)}
+
+
+def test_torch_controller_checkpoint_both_ways(tmp_path):
+    """A controller saved by the port loads in the JAX package and the
+    other way round, with the same nine leaves, treedef and meta."""
+    params, _ = jfnn.init(jax.random.PRNGKey(0), dtype=jnp.float64)
+    jin = jscalers.fit_maxabs(np.random.RandomState(1).randn(30, 3))
+    jout = jscalers.fit_maxabs(np.random.RandomState(2).randn(30, 1))
+    jpath = str(tmp_path / "jax.npz")
+    jcheckpoint.save(jpath, {"params": params,
+                             "in_scaler": (jin.shift, jin.scale),
+                             "out_scaler": (jout.shift, jout.scale)},
+                     meta={"width_dim": 1, "pipeline": "supervised"})
+    p, in_sc, out_sc, meta = checkpoint.load_controller(jpath, device="cpu")
+    assert meta == {"width_dim": 1, "pipeline": "supervised"}
+    for k, v in params.items():
+        np.testing.assert_array_equal(p[k].numpy(), np.asarray(v))
+    np.testing.assert_array_equal(in_sc.scale.numpy(), np.asarray(jin.scale))
+    assert in_sc.scale.device.type == "cpu"
+    ppath = str(tmp_path / "port.npz")
+    checkpoint.save_controller(ppath, p, in_sc, out_sc)
+    with open(jpath + ".meta.json") as a, open(ppath + ".meta.json") as b:
+        assert a.read() == b.read()
+    back = jcheckpoint.load(ppath, _jax_controller_like())
+    want = jcheckpoint.load(jpath, _jax_controller_like())
+    for g, w in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_torch_recorded_controller_loads_row_major():
+    p, in_sc, out_sc, meta = checkpoint.load_controller(
+        str(RECORDED_CONTROLLER), device="cpu")
+    assert meta["pipeline"] == "supervised" and meta["width_dim"] == 1
+    assert p["w_in"].shape == (3, 50) and p["w_out"].shape == (50, 1)
+    assert all(v.is_contiguous() and v.dtype == torch.float32
+               for v in p.values())
+    with pytest.raises(ValueError, match="leaves"):
+        checkpoint.load_controller(str(REPO / "results_repro" /
+                                       "surrogate_params.npz"), device="cpu")

@@ -1,10 +1,12 @@
 """The port's CLI (``python -m forging_control_tpu_torch``) and dataset
-generation, on the CPU: the ``surrogate`` subcommand on tiny npz files
-prints one finite JSON line; ``generate_data.run`` with noise off against
-the JAX package's (float64); configs and datasets move between the two
-packages."""
+generation, on the CPU: the ``surrogate`` and ``supervised`` subcommands on
+tiny npz files print one finite JSON line (``supervised`` with the JAX
+CLI's keys, and without ``--device`` it refuses to run on the CPU);
+``generate_data.run`` with noise off against the JAX package's (float64);
+configs and datasets move between the two packages."""
 
 import dataclasses
+import functools
 import json
 import math
 
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from forging_control_tpu import cli as jcli
 from forging_control_tpu.pipelines import config as jconfig
 from forging_control_tpu.pipelines import generate_data as jgenerate_data
 from forging_control_tpu_torch import cli
@@ -65,7 +68,7 @@ def test_torch_cli_surrogate_prints_one_json_line(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["surrogate", "--data", "x.npz", "--plots"],
     ["generate", "--export-pkl"],
-    ["supervised", "--data", "x.npz"],
+    ["supervised", "--data", "x.npz", "--train-mode", "dagger"],
 ])
 def test_torch_cli_refuses_what_is_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -129,3 +132,78 @@ def test_torch_config_round_trips_with_jax(name, tmp_path):
     assert dataclasses.asdict(back) == dataclasses.asdict(cfg)
     jconfig.save_config(path, back)
     assert config.load_config(path) == cfg
+
+
+def _write_supervised(root):
+    """A tiny dataset of 4 trajectories x 50 steps (200 rows, 120 of them
+    for training)."""
+    rng = np.random.RandomState(1)
+    t = np.arange(50) / 50.0
+    r = {k: (np.sin(2 * np.pi * (i + 1) * t)[None] * 0.3
+             + 0.02 * rng.randn(4, 50)).astype(np.float32)
+         for i, k in enumerate(("y", "y_dot", "p1", "p2", "z", "ref", "u"))}
+    path = generate_data.dataset_path(str(root), 10)
+    generate_data.save(r, path)
+    return path
+
+
+def _numbers_finite(part):
+    return all(math.isfinite(v) for v in part.values()
+               if not isinstance(v, str))
+
+
+@pytest.mark.parametrize("feasibility", [False, True])
+def test_torch_cli_supervised_prints_one_json_line(feasibility, tmp_path,
+                                                   capsys, monkeypatch):
+    """The whole chain at horizon 5 on one evaluation trajectory of 3 steps
+    (the config's t_traj and n_traj_eval cut in the test), 2 epochs, with
+    the latency rows: one finite JSON line with the JAX CLI's keys, the
+    MPC row's latency columns from the native runtime, the tables written
+    under --out."""
+    data = _write_supervised(tmp_path)
+    monkeypatch.setattr(cli.pcfg, "SupervisedConfig", functools.partial(
+        config.SupervisedConfig, t_traj=3, n_traj_eval=1))
+    out = tmp_path / "out"
+    cli.main(["supervised", "--data", data, "--epochs", "2", "--horizon", "5",
+              "--device", "cpu", "--out", str(out)]
+             + (["--feasibility"] if feasibility else []))
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert list(rec) == ["test", "mpc", "nn"]
+    assert all(_numbers_finite(part) for part in rec.values())
+    assert rec["mpc"]["Time_impl"] == "native_cpp_sqp"
+    assert "Tunnel_time" not in rec["nn"]          # no card stepper on a CPU
+    sub = "Feasibility" if feasibility else "Normal"
+    assert (out / "Tables" / sub / "NN_results_N_5.csv").exists()
+
+
+def test_torch_cli_supervised_keys_match_jax(tmp_path, capsys, monkeypatch):
+    """--no-eval: the JAX CLI and the port's print the same keys, and the
+    same test metrics from the same data (the initial weights differ: each
+    package draws its own)."""
+    data = _write_supervised(tmp_path)
+    seen = []
+    monkeypatch.setattr(jcli.log, "info", seen.append)
+    jcli.main(["supervised", "--data", data, "--epochs", "1", "--no-eval",
+               "--out", str(tmp_path / "j")])
+    want = json.loads(seen[-1])
+    cli.main(["supervised", "--data", data, "--epochs", "1", "--no-eval",
+              "--device", "cpu", "--out", str(tmp_path / "p")])
+    got = json.loads(capsys.readouterr().out.strip())
+    assert list(got) == list(want) == ["test", "mpc", "nn"]
+    assert got["mpc"] is None and got["nn"] is None
+    assert list(got["test"]) == list(want["test"])
+    assert _numbers_finite(got["test"])
+
+
+def test_torch_cli_supervised_needs_a_card_unless_asked(tmp_path):
+    """Without --device the chain runs on cuda: on a machine without a card
+    it stops with resolve_device's error instead of running on the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the run would go there")
+    data = _write_supervised(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["supervised", "--data", data, "--epochs", "1", "--no-eval",
+                  "--out", str(tmp_path / "p")])

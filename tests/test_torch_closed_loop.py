@@ -131,3 +131,55 @@ def test_torch_backend_resolution():
     with pytest.raises(ValueError, match="linsolve"):
         cl.MPCController(cl.sqp.MPCConfig(), linsolve="pallas")
     assert interop.linsolve_from_jax("unrolled") == "plain"
+
+
+def test_torch_single_stream_stepper():
+    """make_stepper reproduces run_batch at B = 1 step by step: the same
+    controller warm-start evolution, the same noise, the same commands
+    (the port of tests/test_loop.py's stepper test); with a generator it
+    draws the noise itself, repeatably."""
+    loop_cfg = cl.LoopConfig(t_steps=8, variant="smooth",
+                             process_std=(5e-1, 2e0, 5e7, 5e7, 2e0))
+    ctrl = cl.MPCController(cl.sqp.MPCConfig(horizon=5, variant="smooth",
+                                             gn_iters=3, al_iters=1))
+    refs = torch.full((1, 8), 0.3, dtype=torch.float64)
+    w = torch.randn(1, 8, 5, generator=torch.Generator().manual_seed(1),
+                    dtype=torch.float64) * torch.tensor(loop_cfg.process_std,
+                                                        dtype=torch.float64)
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float64)
+    _, telem = cl.run_batch(loop_cfg, ctrl, x0[None], refs, process_noise=w,
+                            device="cpu")
+    step, carry = cl.make_stepper(loop_cfg, ctrl, x0=x0, dtype=torch.float64,
+                                  device="cpu")
+    us = []
+    for t in range(8):
+        carry, u = step(carry, refs[0, t], process_noise=w[0, t])
+        assert u.shape == ()
+        us.append(u.item())
+    np.testing.assert_allclose(us, telem.u[0].numpy(), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(carry.x_meas[0].numpy(),
+                               telem.x[0, -1].numpy(), rtol=1e-12)
+    runs = []
+    for _ in range(2):
+        step, carry = cl.make_stepper(loop_cfg, ctrl, dtype=torch.float64,
+                                      generator=torch.Generator().manual_seed(
+                                          2), device="cpu")
+        runs.append([step(carry, 0.3)[1].item(),
+                     step(step(carry, 0.3)[0], 0.3)[1].item()])
+    assert runs[0] == runs[1]
+
+
+def test_torch_controller_latency_metrics_cpu_columns():
+    """The reference-format latency columns come from the CPU stepper; on
+    the CPU there is no Tunnel_time column (the card adds it)."""
+    loop_cfg = cl.LoopConfig(t_steps=6, variant="smooth")
+    ctrl = cl.FunctionController(
+        lambda x, ref, u_prev: torch.clamp(0.05 * (ref - x[:, 1]), -0.2, 0.2))
+    refs = torch.full((6,), 0.3)
+    times = cl.stepper_latency(loop_cfg, ctrl, refs, device="cpu")
+    assert times.shape == (5,) and np.all(times > 0)
+    m = cl.controller_latency_metrics(loop_cfg, ctrl, refs, device="cpu")
+    assert list(m) == ["Mean_time", "Std_time", "Median_time", "25_perc",
+                       "75_perc"]
+    assert all(np.isfinite(v) and v >= 0 for v in m.values())

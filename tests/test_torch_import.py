@@ -15,14 +15,15 @@ _PROBE = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 import forging_control_tpu_torch
-from forging_control_tpu_torch import bench, cli, dual, interop
+from forging_control_tpu_torch import bench, cli, dual, interop, runtime
 from forging_control_tpu_torch import __main__
-from forging_control_tpu_torch.eval import metrics
-from forging_control_tpu_torch.nn import (datasets, lstm, scalers,
+from forging_control_tpu_torch.eval import metrics, report
+from forging_control_tpu_torch.nn import (datasets, fnn, lstm, scalers,
                                           surrogate_eval, train)
 from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
 from forging_control_tpu_torch.pipelines import (config, generate_data,
-                                                 surrogate)
+                                                 supervised, surrogate)
+from forging_control_tpu_torch.solver import feasibility
 from forging_control_tpu_torch.utils import checkpoint
 import chip_smoke
 loaded = sorted(m for m in sys.modules

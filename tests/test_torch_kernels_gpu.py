@@ -149,3 +149,52 @@ def test_torch_probe_kernel_matches_plain_on_gpu():
     assert torch.equal(probe.probe_cuda(x), probe.probe_torch(x))
     assert probe.probe_cuda.launches == launches + 1
     assert probe.main() == 0
+
+
+@pytest.mark.gpu
+def test_torch_feasibility_and_recorded_controller_on_gpu():
+    """Feasibility recovery on the card in float64 against the CPU (the
+    same arithmetic up to rounding; a near tie in the projection's discrete
+    decisions may move a command by one late Gauss-Newton step, so 1e-7),
+    and the recorded FNN controller loaded onto the card: its policy there
+    equals the CPU's to float32 rounding."""
+    _need_card()
+    from pathlib import Path
+
+    from forging_control_tpu_torch.nn import fnn
+    from forging_control_tpu_torch.physics import press
+    from forging_control_tpu_torch.solver import feasibility as feas
+    from forging_control_tpu_torch.utils import checkpoint
+
+    rng = np.random.RandomState(0)
+    B = 64
+    x = np.stack([rng.uniform(0, 0.1, B), rng.uniform(-0.6, 0.6, B),
+                  rng.uniform(-5e5, 3.3e7, B), rng.uniform(1e5, 3.3e7, B),
+                  rng.uniform(-0.2, 0.2, B)], -1)
+    x[0] = (0.08, 0.15, 2e5, 9e6, 0.05)
+    u = rng.uniform(-0.3, 0.3, B)
+    cfg = feas.FeasibilityConfig()
+    xt, ut = torch.from_numpy(x), torch.from_numpy(u)
+    cpu = feas.recover(cfg, ut, xt)
+    card = feas.recover(cfg, ut.cuda(), xt.cuda())
+    assert card.u.device.type == "cuda"
+    torch.testing.assert_close(card.u.cpu(), cpu.u, rtol=0, atol=1e-7)
+    warm = feas.init_warm(cfg, B, torch.float64, "cuda")
+    res, new = feas.recover_warm(cfg, ut.cuda(), xt.cuda(), warm)
+    res_c, _ = feas.recover_warm(cfg, ut, xt, feas.init_warm(
+        cfg, B, torch.float64, "cpu"))
+    torch.testing.assert_close(res.u.cpu(), res_c.u, rtol=0, atol=1e-7)
+    assert new.lam.device.type == "cuda"
+
+    path = Path(__file__).resolve().parents[1] / "results_repro" / \
+        "results" / "NN_controller_N_10_process_noise.npz"
+    params, in_sc, out_sc, meta = checkpoint.load_controller(str(path),
+                                                             device="cuda")
+    assert all(v.device.type == "cuda" and v.is_contiguous()
+               for v in params.values())
+    p_cpu, _, _, _ = checkpoint.load_controller(str(path), device="cpu")
+    xm = torch.tensor(press.X0_REFERENCE).repeat(4, 1).float()
+    ref = torch.tensor([0.5, 0.2, -0.3, -0.6])
+    got = fnn.make_policy(params, in_sc, out_sc)(xm.cuda(), ref.cuda(), None)
+    want = fnn.make_policy(p_cpu, in_sc, out_sc)(xm, ref, None)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
