@@ -1,21 +1,21 @@
 """Command-line entry points of the port.
 
-Port of the ported subcommands of ``forging_control_tpu/cli.py``
-(``:78-151``, ``:213-239``), with the same flags and the same single JSON
-line of results, printed to standard output:
+Port of ``forging_control_tpu/cli.py``, with the same subcommands, flags and
+single JSON line of results, printed to standard output:
 
-    python -m forging_control_tpu_torch generate   --n-traj 80 --horizon 25 --noise
-    python -m forging_control_tpu_torch supervised --data data/....npz --feasibility
-    python -m forging_control_tpu_torch surrogate  --data 'data/*.npz' --epochs 50
+    python -m forging_control_tpu_torch generate --n-traj 80 --horizon 25
+    python -m forging_control_tpu_torch sweep --horizons 5 10 15 20 25
+    python -m forging_control_tpu_torch supervised --data data/N_10.npz
+    python -m forging_control_tpu_torch surrogate --data 'data/*.npz'
+    python -m forging_control_tpu_torch unsupervised --data data/N_10.npz
 
 Every subcommand runs on ``--device`` (default ``cuda``; ``cpu`` only when
 asked).  ``surrogate`` reads its files in ``sorted(glob)`` order per
 pattern, as the JAX package's CLI does (so ``N_10`` comes before ``N_5``).
-The other subcommands, ``supervised --train-mode dagger``
-(``nn.train.train_dagger``), ``--plots`` (``eval/html_dash``,
-``eval/plots``) and ``--export-pkl`` (``utils/dompc_pickle``) wait for
-their modules (ROADMAP Queue A 10, 11, 12, 14) and are refused with a
-message.
+``--plots`` writes the HTML dashboards (``eval/html_dash``) and the PNGs
+(``eval/plots``, which needs matplotlib) under ``<out>/Images/`` and names
+them on standard error.  ``generate --export-pkl`` (``utils/dompc_pickle``)
+waits for its module (ROADMAP Queue A 14) and is refused with a message.
 """
 
 from __future__ import annotations
@@ -42,6 +42,30 @@ def _emit(rec: dict) -> None:
     print(json.dumps(rec), flush=True)
 
 
+def _emit_dashboards(telem, out_dir: str, tag: str):
+    """Interactive HTML dashboards (the reference's Plotly pages with the
+    per-trajectory slider; Generate Data/Main.py:120-262) and PNGs matching
+    the reference's results/Images/ files (Supervised Learning/
+    Functions.py:1557-1565); their paths go to standard error."""
+    import os
+
+    from .eval import html_dash, plots
+    p1 = os.path.join(out_dir, "Images", f"{tag}_closed_loop.html")
+    p2 = os.path.join(out_dir, "Images", f"{tag}_solver.html")
+    html_dash.dashboard_from_telemetry(telem, p1, title=f"{tag} closed loop")
+    html_dash.solver_dashboard_from_telemetry(telem, p2,
+                                              title=f"{tag} solver")
+    outs = [p1, p2]
+    for name, fn in (("closed_loop", plots.plot_closed_loop),
+                     ("solver", plots.plot_solver_diagnostics)):
+        png = os.path.join(out_dir, "Images", f"{tag}_{name}.png")
+        fig = fn(telem, 0, png)
+        import matplotlib.pyplot as plt
+        plt.close(fig)
+        outs.append(png)
+    print(json.dumps({"dashboards": outs}), file=sys.stderr, flush=True)
+
+
 def cmd_generate(args):
     from .pipelines import generate_data
     cfg = pcfg.GenerateConfig(
@@ -49,7 +73,7 @@ def cmd_generate(args):
         solver_preset=args.solver_preset, record_trace=args.trace,
         backend=args.backend, flags=_flags(args))
     t0 = time.time()
-    _, results = generate_data.run(
+    telem, results = generate_data.run(
         cfg, seed=args.seed, exact_reference_streams=not args.random_refs,
         device=args.device)
     wall_s = time.time() - t0
@@ -60,6 +84,21 @@ def cmd_generate(args):
     summ["wall_s"] = round(wall_s, 2)
     summ["solves"] = cfg.n_traj * cfg.t_traj
     _emit({"dataset": path, **summ})
+    if args.plots:
+        _emit_dashboards(telem, args.out, f"MPC_N_{cfg.horizon}")
+
+
+def cmd_sweep(args):
+    from .pipelines import generate_data
+    for h in args.horizons:
+        cfg = pcfg.GenerateConfig(n_traj=args.n_traj, t_traj=args.t_traj,
+                                  horizon=h, flags=_flags(args))
+        _, results = generate_data.run(
+            cfg, seed=args.seed, exact_reference_streams=not args.random_refs,
+            device=args.device)
+        path = generate_data.dataset_path(args.out, h)
+        generate_data.save(results, path)
+        _emit({"dataset": path, **generate_data.summarize(results)})
 
 
 def cmd_supervised(args):
@@ -73,6 +112,9 @@ def cmd_supervised(args):
                          device=args.device)
     _emit({"test": art.test_metrics, "mpc": art.mpc_metrics,
            "nn": art.nn_metrics})
+    if args.plots and art.nn_telem is not None:
+        _emit_dashboards(art.nn_telem, args.out, "NN_supervised")
+        _emit_dashboards(art.mpc_telem, args.out, "MPC_baseline")
 
 
 def cmd_surrogate(args):
@@ -90,6 +132,25 @@ def cmd_surrogate(args):
     _emit({"test": art.test_metrics, "closed_loop": art.closed_loop_metrics})
 
 
+def cmd_unsupervised(args):
+    from .pipelines import generate_data, surrogate, unsupervised
+    results = generate_data.load(args.data)
+    s_cfg = pcfg.SurrogateConfig(epochs=args.surrogate_epochs,
+                                 flags=_flags(args))
+    s_art = surrogate.run([results], s_cfg, seed=args.seed,
+                          device=args.device)
+    cfg = pcfg.UnsupervisedConfig(horizon=args.horizon, epochs=args.epochs,
+                                  train_mode=args.train_mode,
+                                  n_seeds=args.seeds, flags=_flags(args))
+    art = unsupervised.run(results, s_art.model, s_art.state_scaler, cfg,
+                           seed=args.seed, closed_loop_eval=not args.no_eval,
+                           out_dir=args.out, device=args.device)
+    _emit({"test": art.test_metrics, "nn": art.nn_metrics,
+           "surrogate_drift": art.surrogate_drift})
+    if args.plots and art.nn_telem is not None:
+        _emit_dashboards(art.nn_telem, args.out, "NN_unsupervised")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="forging_control_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -99,7 +160,8 @@ def main(argv=None):
         sp.add_argument("--noise", action="store_true")
         sp.add_argument("--out", default="data")
         sp.add_argument("--plots", action="store_true",
-                        help="not ported yet (eval/html_dash, eval/plots)")
+                        help="write interactive HTML dashboards and PNGs to "
+                             "<out>/Images/ (show_plots equivalent)")
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
 
@@ -121,6 +183,15 @@ def main(argv=None):
                    help="not ported yet (utils/dompc_pickle)")
     g.set_defaults(fn=cmd_generate)
 
+    sw = sub.add_parser("sweep", help="multi-horizon dataset sweep")
+    common(sw)
+    sw.add_argument("--horizons", type=int, nargs="+",
+                    default=[5, 10, 15, 20, 25])
+    sw.add_argument("--n-traj", type=int, default=80)
+    sw.add_argument("--t-traj", type=int, default=300)
+    sw.add_argument("--random-refs", action="store_true")
+    sw.set_defaults(fn=cmd_sweep)
+
     sv = sub.add_parser("supervised", help="FNN imitation training + eval")
     common(sv)
     sv.add_argument("--data", required=True)
@@ -136,8 +207,9 @@ def main(argv=None):
                     help="MPC baseline solver backend (see generate)")
     sv.add_argument("--train-mode", default="imitation",
                     choices=["imitation", "dagger"],
-                    help="imitation = reference one-shot cloning; dagger is "
-                         "not ported yet")
+                    help="imitation = reference one-shot cloning; dagger ="
+                         " iterated imitation with batched MPC-teacher"
+                         " relabelling (no plant fine-tune)")
     sv.set_defaults(fn=cmd_supervised)
 
     sg = sub.add_parser("surrogate", help="LSTM surrogate training")
@@ -147,13 +219,26 @@ def main(argv=None):
     sg.add_argument("--save", default=None)
     sg.set_defaults(fn=cmd_surrogate)
 
+    us = sub.add_parser("unsupervised", help="MPC-loss controller training")
+    common(us)
+    us.add_argument("--data", required=True)
+    us.add_argument("--horizon", type=int, default=10)
+    us.add_argument("--epochs", type=int, default=20)
+    us.add_argument("--surrogate-epochs", type=int, default=10)
+    us.add_argument("--train-mode", choices=["surrogate", "plant", "dagger"],
+                    default="surrogate",
+                    help="surrogate: reference protocol (MPC loss through "
+                         "the frozen LSTM); plant: policy gradients through "
+                         "the true differentiable plant; dagger: iterated "
+                         "imitation with batched MPC relabelling of the "
+                         "student's own states")
+    us.add_argument("--feasibility", action="store_true")
+    us.add_argument("--no-eval", action="store_true")
+    us.add_argument("--seeds", type=int, default=1,
+                    help="training replicas; best by closed-loop val MAE")
+    us.set_defaults(fn=cmd_unsupervised)
+
     args = p.parse_args(argv)
-    if args.plots:
-        p.error("--plots needs eval/html_dash and eval/plots, which the port "
-                "does not have yet (ROADMAP Queue A 12)")
-    if getattr(args, "train_mode", None) == "dagger":
-        p.error("--train-mode dagger needs nn.train.train_dagger, which the "
-                "port does not have yet (ROADMAP Queue A 10)")
     if getattr(args, "export_pkl", False):
         p.error("--export-pkl needs utils/dompc_pickle, which the port does "
                 "not have yet (ROADMAP Queue A 14)")

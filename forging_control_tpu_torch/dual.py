@@ -21,7 +21,10 @@ ordinary tensors, and the D directions ride along as a batch axis.
 The tangent rules follow JAX's ``jvp`` rules, including their values at ties
 (``maximum``/``minimum`` give each side one half; ``abs`` gives +1 at 0; a
 clip is ``minimum(maximum(x, lo), hi)``), so Jacobians agree with the JAX
-package's to rounding.
+package's to rounding.  On plain tensors that require a gradient the helpers
+keep JAX's rules for reverse mode too (``torch.clamp_min`` passes the whole
+gradient at a tie and ``torch.abs`` passes 0 at 0); on tensors that do not,
+they take the cheapest torch op with the same values.
 """
 
 from __future__ import annotations
@@ -164,9 +167,17 @@ def sign(a):
     return torch.sign(a)
 
 
+def _grad(a) -> bool:
+    return isinstance(a, torch.Tensor) and a.requires_grad
+
+
 def abs(a):  # noqa: A001 - mirrors jnp.abs
     if isinstance(a, Dual):
         return Dual(torch.abs(a.p), torch.where(_e(a.p >= 0), a.t, -a.t))
+    if _grad(a):
+        # JAX's derivative: +1 at 0 (torch.abs gives 0); "+ 0.0" turns the
+        # -0.0 that -(-0.0) would leave into torch.abs's +0.0.
+        return torch.where(a >= 0, a, -a) + 0.0
     return torch.abs(a)
 
 
@@ -178,6 +189,11 @@ def _as_tensor(b, like):
 def _extremum(a, b, op):
     pa, pb = _primal(a), _primal(b)
     if not isinstance(a, Dual) and not isinstance(b, Dual):
+        if _grad(pa) or _grad(pb):
+            # torch.maximum/minimum of two tensors split the gradient one
+            # half each at a tie, as JAX does; clamp_min/max would not.
+            like = pa if isinstance(pa, torch.Tensor) else pb
+            return op(_as_tensor(pa, like), _as_tensor(pb, like))
         if not isinstance(pb, torch.Tensor):
             return (torch.clamp_min if op is torch.maximum
                     else torch.clamp_max)(pa, pb)
@@ -218,9 +234,15 @@ def minimum(a, b):
 
 
 def clip(a, lo, hi):
-    """``jnp.clip``: ``minimum(maximum(a, lo), hi)``, not ``torch.clamp``,
-    whose tangent at the bounds differs from JAX's."""
-    return minimum(maximum(a, lo), hi)
+    """``jnp.clip``: ``minimum(maximum(a, lo), hi)``.  ``torch.clamp``
+    has the same values but passes the whole gradient at the bounds, so it
+    serves only where no derivative is taken."""
+    if (not any(isinstance(v, Dual) or _grad(v) for v in (a, lo, hi))
+            and isinstance(lo, torch.Tensor) == isinstance(hi, torch.Tensor)):
+        return torch.clamp(a, lo, hi)
+    if lo is not None:
+        a = maximum(a, lo)
+    return a if hi is None else minimum(a, hi)
 
 
 def where(cond, a, b):

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from .. import dual as ad
 from ..device import resolve_device
 
 
@@ -62,7 +63,7 @@ def _forward(p, x, width_dim):
     h = torch.relu(x @ p["w_in"] + p["b_in"])
     for _ in range(width_dim - 1):       # weight-shared intermediate layer
         h = torch.relu(h @ p["w_int"] + p["b_int"])
-    return torch.clamp(h @ p["w_out"], -1.0, 1.0)     # nn.Hardtanh()
+    return ad.clip(h @ p["w_out"], -1.0, 1.0)         # nn.Hardtanh()
 
 
 def apply(params, x, width_dim=1):
@@ -113,7 +114,8 @@ def apply_simulator(params, x, width_dim=1):
     return lin("out", h)
 
 
-def make_policy(params, in_scaler, out_scaler, width_dim=1, lb=None, ub=None):
+def make_policy(params, in_scaler, out_scaler, width_dim=1, lb=None, ub=None,
+                *, cache=True):
     """Batched closed-loop policy ``u = g(x_meas (B, 5), ref (B,), u_prev
     (B,)) -> (B,)``.
 
@@ -123,28 +125,37 @@ def make_policy(params, in_scaler, out_scaler, width_dim=1, lb=None, ub=None):
     the reference declares LB_U/UB_U = +-0.2 but never applies them to the
     NN output; pass lb/ub to opt into explicit saturation.
 
-    The weights and scalers are cast to the state's dtype and device at the
-    first call with that pair, and the copies kept for later calls (so a CPU
+    The weights and scalers are cast to the state's dtype and device.  With
+    ``cache`` (the steppers' form) the cast copies are made at the first
+    call with that pair, detached, and kept for later calls, so a CPU
     stepper of a controller whose weights live on a card pays no copy per
-    step)."""
+    step.  ``cache=False`` reads the live ``params`` at every call, so a
+    gradient flows back to them (training through the closed loop, as the
+    JAX package's ``train_plant_in_loop`` does)."""
     tensors = {**params, "in_shift": in_scaler.shift,
                "in_scale": in_scaler.scale, "out_shift": out_scaler.shift,
                "out_scale": out_scaler.scale}
     copies = {}
 
+    def cast(x_meas):
+        return {k: torch.as_tensor(v).to(x_meas.device, x_meas.dtype)
+                for k, v in tensors.items()}
+
     def policy(x_meas, ref, u_prev):
-        key = (x_meas.device, x_meas.dtype)
-        if key not in copies:
-            copies[key] = {k: torch.as_tensor(v).detach().to(
-                x_meas.device, x_meas.dtype) for k, v in tensors.items()}
-        p = copies[key]
+        if cache:
+            key = (x_meas.device, x_meas.dtype)
+            if key not in copies:
+                copies[key] = {k: v.detach() for k, v in cast(x_meas).items()}
+            p = copies[key]
+        else:
+            p = cast(x_meas)
         feats = torch.stack([x_meas[:, 1], x_meas[:, 4], ref.to(x_meas)],
                             dim=-1)
         z = (feats - p["in_shift"]) / p["in_scale"]
         u_s = _forward(p, z, width_dim)[:, 0]
         u = u_s * p["out_scale"] + p["out_shift"]
         if lb is not None or ub is not None:
-            u = torch.clamp(u, lb, ub)
+            u = ad.clip(u, lb, ub)
         return u
 
     return policy

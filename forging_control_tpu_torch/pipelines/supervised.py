@@ -83,25 +83,25 @@ def _sync(device):
 def run(results: dict, cfg: SupervisedConfig = SupervisedConfig(), *,
         seed: int = 0, closed_loop_eval: bool = True,
         out_dir: str | None = None, dtype=torch.float32, device="cuda",
-        init_params: dict | None = None, perms=None) -> SupervisedArtifacts:
+        init_params: dict | None = None, perms=None,
+        refs: dict | None = None) -> SupervisedArtifacts:
     """Train and evaluate on ``device`` in ``dtype``.
 
     ``init_params``: the initial weights as the JAX package's FNN params
     pytree of NumPy arrays (e.g. its ``fnn.init`` from ``PRNGKey(seed)``);
     by default they are drawn from a ``torch.Generator`` seeded with the
     training seed.  ``perms``: the per-epoch batch tables (see
-    ``train.train_supervised``).  Both apply to a single training run
-    (``n_seeds == 1``).  ``train_mode="dagger"`` needs ``train_dagger``,
-    which the port does not have yet, and is refused.
+    ``train.train_supervised``; per round with ``train_mode="dagger"``).
+    ``refs`` {"val": closed-loop validation streams, "dagger": per-round
+    streams} replace the draws of DAgger and its validation (see
+    ``train.train_dagger``).  They apply to a single training run
+    (``n_seeds == 1``).
     """
-    if cfg.train_mode == "dagger":
-        raise NotImplementedError(
-            "train_mode='dagger' needs nn.train.train_dagger, which the port "
-            "does not have yet (ROADMAP Queue A 10)")
     if cfg.n_seeds > 1 and (init_params is not None or perms is not None):
         raise ValueError("init_params and perms set one training run; "
                          f"n_seeds is {cfg.n_seeds}")
     device = resolve_device(device)
+    refs = refs or {}
     (xtr, ytr), (xva, yva), (xte, yte), in_sc, out_sc = prepare_data(
         results, cfg)
     noise = PROCESS_STD if cfg.flags.enable_noise else (0.0,) * 5
@@ -116,22 +116,44 @@ def run(results: dict, cfg: SupervisedConfig = SupervisedConfig(), *,
 
     params = initial(seed)
     if cfg.flags.enable_training:
-        # Multi-seed selection by true-plant closed-loop validation MAE on
-        # held-out streams (the reference's "sim" replicas), with the
-        # deployment's noise.
+        # Multi-seed selection (the reference's "sim" replicas) and DAgger's
+        # rounds by true-plant closed-loop validation MAE on held-out
+        # streams, with the deployment's noise.
         cl_val_fn = None
-        if cfg.n_seeds > 1:
+        if cfg.n_seeds > 1 or cfg.train_mode == "dagger":
             cl_val_fn = train.make_closed_loop_val(
                 in_sc, out_sc, n_traj=16, t_traj=cfg.t_traj, dtype=dtype,
                 seed=seed, ref_variant="supervised",
-                width_dim=cfg.width_dim, process_std=noise, device=device)
-        best = None
-        for k in range(max(1, cfg.n_seeds)):
-            s = seed + 1000 * k
-            p_k, rep_k = train.train_supervised(
+                width_dim=cfg.width_dim, process_std=noise,
+                refs=refs.get("val"), device=device)
+
+        def train_one(s):
+            if cfg.train_mode == "dagger":
+                # Iterated imitation: the chain's own MPC teacher relabels
+                # the student's closed-loop states each round; round 0 is
+                # the deployment-aligned full-density pairing.
+                from .unsupervised import _full_density
+                xf, uf, xvf, uvf = _full_density(results, in_sc, out_sc,
+                                                 dtype)
+                return train.train_dagger(
+                    initial(s), in_sc, out_sc, xf, uf, xvf, uvf,
+                    mpc_cfg=PRESETS[cfg.solver_preset](horizon=cfg.horizon,
+                                                       variant="smooth"),
+                    rounds=cfg.dagger_rounds, n_traj=cfg.dagger_n_traj,
+                    t_steps=cfg.t_traj, epochs=cfg.dagger_epochs,
+                    ref_variant="supervised", width_dim=cfg.width_dim,
+                    backend=cl.resolve_backend("auto", cfg.horizon),
+                    process_std=noise, seed=s, closed_loop_val_fn=cl_val_fn,
+                    perms=perms, refs=refs.get("dagger"))
+            return train.train_supervised(
                 initial(s), xtr, ytr, xva, yva, width_dim=cfg.width_dim,
                 lr=cfg.lr, epochs=cfg.epochs, batch_size=cfg.batch_size,
                 seed=s, perms=perms)
+
+        best = None
+        for k in range(max(1, cfg.n_seeds)):
+            s = seed + 1000 * k
+            p_k, rep_k = train_one(s)
             score = float(cl_val_fn(p_k)) if cl_val_fn is not None else 0.0
             if best is None or score < best[0]:
                 best = (score, s, p_k, rep_k)

@@ -11,9 +11,9 @@ written by either package loads in the other.  orbax is not ported.
 checkpoint (what ``surrogate --save`` writes) into the port's
 ``LSTMSurrogate`` and ``Scaler``, reading the layout from the leaves'
 shapes.  :func:`save_controller` / :func:`load_controller` move the FNN
-controller checkpoint that the supervised pipeline writes
+controller checkpoints that the supervised and unsupervised pipelines write
 (``results/NN_controller_*.npz``: the params and both scalers, meta
-``width_dim`` and ``pipeline``).
+``width_dim`` and ``pipeline``, or ``train_mode`` and ``pipeline``).
 """
 
 from __future__ import annotations
@@ -169,7 +169,9 @@ def save_controller(path: str, params: dict, in_scaler, out_scaler, *,
 def load_controller(path: str, *, dtype=None, device="cuda"):
     """(params on ``device``, in_scaler, out_scaler on the CPU, meta) from an
     FNN controller checkpoint written by either package.  ``dtype`` defaults
-    to the stored one; the scalers keep theirs."""
+    to the stored one; the scalers keep theirs.  The unsupervised
+    pipeline's checkpoints store no ``width_dim`` (their FNN is always
+    width 1): the meta returned then says 1."""
     like = {"params": dict.fromkeys(interop.FNN_KEYS, 0),
             "in_scaler": (0, 0), "out_scaler": (0, 0)}
     tree = load(path, like)
@@ -184,4 +186,4 @@ def load_controller(path: str, *, dtype=None, device="cuda"):
     return (interop.fnn_params_from_numpy(p, dtype=dtype, device=device),
             interop.scaler_from_numpy(tree["in_scaler"], device="cpu"),
             interop.scaler_from_numpy(tree["out_scaler"], device="cpu"),
-            load_meta(path))
+            {"width_dim": 1, **load_meta(path)})

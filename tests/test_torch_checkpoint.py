@@ -222,3 +222,136 @@ def test_torch_recorded_controller_loads_row_major():
     with pytest.raises(ValueError, match="leaves"):
         checkpoint.load_controller(str(REPO / "results_repro" /
                                        "surrogate_params.npz"), device="cpu")
+
+
+RECORDED_UNSUP = REPO / "results_repro" / "results" / \
+    "NN_controller_unsupervised_N_10_noise.npz"
+UNSUP_DATASET = REPO / "results_repro" / \
+    "forging_mult_traj_process_noise_N_10.npz"
+
+
+def _jax_recorded_unsupervised():
+    """The JAX package's numbers for the recorded unsupervised controller
+    (``chip_smoke.recorded_unsupervised_metrics`` computes the port's): the
+    MPC loss of 15 training windows through the recorded surrogate in
+    float32 and float64, the scaled test-split metrics, a noise-free float32
+    closed loop of 2 x 300 steps on the "unsupervised" streams, and the
+    surrogate's free-running drift along its first trajectory."""
+    from forging_control_tpu.eval import metrics as jmetrics
+    from forging_control_tpu.loop import closed_loop as jcl
+    from forging_control_tpu.nn import mpc_loss as jmpc_loss
+    from forging_control_tpu.pipelines import config as jconfig
+    from forging_control_tpu.pipelines import generate_data as jgenerate_data
+    from forging_control_tpu.pipelines import unsupervised as junsupervised
+    from forging_control_tpu.refgen import streams as jstreams
+
+    like = _jax_like(50, 3)
+    like["params"] = jax.tree.map(lambda a: a.astype(jnp.float32),
+                                  like["params"])
+    jck = jcheckpoint.load(str(RECORDED), like)
+    surr, state_sc = jck["params"], jck["scaler"]
+    tree = jcheckpoint.load(str(RECORDED_UNSUP), _jax_controller_like())
+    p = jax.tree.map(jnp.asarray, tree["params"])
+    in_sc = jscalers.Scaler(*map(jnp.asarray, tree["in_scaler"]))
+    u_sc = jscalers.Scaler(*map(jnp.asarray, tree["out_scaler"]))
+    res = jgenerate_data.load(str(UNSUP_DATASET))
+    (xtr, _, ztr), _, (xte, ute, _), _, _ = junsupervised.prepare_data(
+        res, state_sc, jconfig.UnsupervisedConfig())
+    out = {}
+    for name, dt in (("mpc_loss_f32", jnp.float32),
+                     ("mpc_loss_f64", jnp.float64)):
+        cast = lambda t: jax.tree.map(lambda a: jnp.asarray(a, dt), t)  # noqa
+        xb, zb = cast(xtr[:15]), cast(ztr[:15])
+        pp = cast(p)
+        out[name] = float(jmpc_loss.mpc_loss(
+            pp, cast(surr), xb, jfnn.apply(pp, xb), zb, horizon=10)[0])
+    pred = jfnn.apply(p, jnp.asarray(xte))
+    out["test"] = {k: float(f(jnp.asarray(ute), pred)) for k, f in (
+        ("MAE", jmetrics.mae), ("RMSE", jmetrics.rmse), ("R2", jmetrics.r2))}
+    refs = jnp.asarray(jstreams.reference_table(2, "unsupervised", 300),
+                       jnp.float32)
+    x0 = jnp.tile(jnp.asarray(jcl.press.X0_REFERENCE, jnp.float32), (2, 1))
+    ctrl = jcl.FunctionController(jfnn.make_policy(p, in_sc, u_sc))
+    loop = jcl.LoopConfig(t_steps=300, variant="smooth")
+    _, tel = jax.jit(lambda x, r, k: jcl.run_batch(loop, ctrl, x, r, k))(
+        x0, refs, jax.random.PRNGKey(1))
+    m = {k: float(v) for k, v in jmetrics.tracking_metrics(
+        jnp.asarray(np.asarray(tel.ref).ravel()),
+        jnp.asarray(np.asarray(tel.x[..., 1]).ravel())).items()}
+    m["Command"] = float(np.abs(np.asarray(tel.u)).mean())
+    out["loop"] = m
+    track = jsurrogate_eval.build_feature_track(tel, state_sc, traj=0)
+    preds = jsurrogate_eval.free_running(surr, track, 10)
+    out["drift"] = {k: v for k, v in jsurrogate_eval.fidelity_metrics(
+        preds[:-1], track[11:, :4]).items()}
+    return out
+
+
+def test_torch_recorded_unsupervised_metrics_on_cpu():
+    """The recorded unsupervised controller (a checkpoint without
+    ``width_dim``) through the port on the CPU: the numbers of
+    ``chip_smoke.recorded_unsupervised_metrics`` equal the JAX package's
+    (recomputed here) within the smoke run's bounds, and the JAX package's
+    equal the pinned ``chip_smoke.RECORDED_UNSUP`` within 1e-6."""
+    p, _, _, meta = checkpoint.load_controller(str(RECORDED_UNSUP),
+                                               device="cpu")
+    assert meta == {"width_dim": 1, "train_mode": "dagger",
+                    "pipeline": "unsupervised"}
+    results = generate_data.load(str(UNSUP_DATASET))
+    got, launches = chip_smoke.recorded_unsupervised_metrics(results, "cpu")
+    want = _jax_recorded_unsupervised()
+    pinned = chip_smoke.RECORDED_UNSUP
+    for name, rtol in chip_smoke.UNSUP_LOSS_RTOL.items():
+        assert abs(got[name] / want[name] - 1) <= rtol, name
+        assert abs(want[name] / pinned[name] - 1) <= 1e-6, name
+    for what in ("test", "loop", "drift"):
+        assert got[what].keys() == want[what].keys() == pinned[what].keys()
+        for k, v in pinned[what].items():
+            tol = (chip_smoke.DRIFT_TOL[k.split("_")[0]] if what == "drift"
+                   else chip_smoke.SUP_TOL[k])
+            assert abs(got[what][k] - want[what][k]) <= tol, (what, k)
+            assert abs(want[what][k] - v) <= 1e-6, (what, k)
+
+
+def test_torch_compat_loads_reference_weights_and_scalers(tmp_path):
+    """The reference's torch state dicts (FNNModel, LSTMModel; from a path
+    and as a dict) and its four sklearn scaler kinds convert to the JAX
+    package's values."""
+    from forging_control_tpu.nn import torch_compat as jtorch_compat
+    from forging_control_tpu_torch.nn import torch_compat
+    from sklearn import preprocessing as sk
+    rng = np.random.RandomState(0)
+    fnn_sd = {"fc_inp.weight": torch.randn(50, 3), "fc_inp.bias":
+              torch.randn(50), "fc_int.weight": torch.randn(50, 50),
+              "fc_int.bias": torch.randn(50), "fc_out.weight":
+              torch.randn(1, 50)}
+    path = str(tmp_path / "fnn.pt")
+    torch.save(fnn_sd, path)
+    want = jtorch_compat.fnn_from_torch(fnn_sd)
+    for source in (fnn_sd, path):
+        got = torch_compat.fnn_from_torch(source, device="cpu")
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
+            assert got[k].is_contiguous()
+    lstm_sd = {"fc.weight": torch.randn(4, 8), "fc.bias": torch.randn(4)}
+    for l in range(2):
+        lstm_sd[f"lstm.weight_ih_l{l}"] = torch.randn(32, 5 if l == 0 else 8)
+        lstm_sd[f"lstm.weight_hh_l{l}"] = torch.randn(32, 8)
+    model = torch_compat.lstm_from_torch(lstm_sd, num_layers=2, device="cpu")
+    jparams = jtorch_compat.lstm_from_torch(lstm_sd, num_layers=2)
+    got = interop.lstm_params_to_numpy(model)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    x = rng.randn(40, 3) * [1.0, 50.0, 0.1]
+    for cls in (sk.MaxAbsScaler, sk.MinMaxScaler, sk.StandardScaler,
+                sk.RobustScaler):
+        fitted = cls().fit(x)
+        a = torch_compat.scaler_from_sklearn(fitted)
+        b = jtorch_compat.scaler_from_sklearn(fitted)
+        np.testing.assert_array_equal(a.shift.numpy(), np.asarray(b.shift))
+        np.testing.assert_array_equal(a.scale.numpy(), np.asarray(b.scale))
+        np.testing.assert_allclose(a.transform(torch.from_numpy(x)).numpy(),
+                                   fitted.transform(x), rtol=1e-12,
+                                   atol=1e-12)
+    with pytest.raises(ValueError, match="unsupported"):
+        torch_compat.scaler_from_sklearn(object())

@@ -1,7 +1,9 @@
 """The port's CLI (``python -m forging_control_tpu_torch``) and dataset
 generation, on the CPU: the ``surrogate`` and ``supervised`` subcommands on
 tiny npz files print one finite JSON line (``supervised`` with the JAX
-CLI's keys, and without ``--device`` it refuses to run on the CPU);
+CLI's keys, and without ``--device`` it refuses to run on the CPU; the
+subcommands of the unsupervised chain are in
+``test_torch_cli_unsupervised.py``);
 ``generate_data.run`` with noise off against the JAX package's (float64);
 configs and datasets move between the two packages."""
 
@@ -66,11 +68,13 @@ def test_torch_cli_surrogate_prints_one_json_line(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["surrogate", "--data", "x.npz", "--plots"],
+    ["unsupervised", "--data", "x.npz", "--train-mode", "imitation"],
     ["generate", "--export-pkl"],
-    ["supervised", "--data", "x.npz", "--train-mode", "dagger"],
+    ["supervised", "--data", "x.npz", "--train-mode", "plant"],
 ])
 def test_torch_cli_refuses_what_is_not_ported(argv, capsys):
+    """``--export-pkl`` waits for utils/dompc_pickle; the train modes each
+    subcommand does not have are refused as in the JAX CLI."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code != 0

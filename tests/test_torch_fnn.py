@@ -2,7 +2,9 @@
 package (float64, CPU): ``apply``, ``apply_simulator`` and ``make_policy``
 with the JAX package's weights carried across; ``train_supervised`` with its
 initial weights and batch tables; ``make_closed_loop_val`` on its reference
-streams."""
+streams; reverse mode at ties (the ``dual`` helpers on plain tensors and
+the Hardtanh at its bounds) and through the closed loop
+(``make_policy(cache=False)``) against ``jax.grad``."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ from forging_control_tpu.nn import fnn as jfnn
 from forging_control_tpu.nn import scalers as jscalers
 from forging_control_tpu.nn import train as jtrain
 from forging_control_tpu.refgen import streams as jstreams
+from forging_control_tpu_torch import dual as ad
 from forging_control_tpu_torch import interop
 from forging_control_tpu_torch.nn import fnn, scalers, train
 
@@ -201,3 +204,102 @@ def test_torch_closed_loop_val_matches_jax():
                                      process_std=(0.0, 1e-3, 1e4, 1e4, 0.0),
                                      device="cpu")
     assert float(own(p)) == float(own(p)) and np.isfinite(float(own(p)))
+
+
+_TIES = {
+    "maximum": (lambda x: ad.maximum(x, 0.0), lambda x: jnp.maximum(x, 0.0)),
+    "maximum_lhs": (lambda x: ad.maximum(0.0, x),
+                    lambda x: jnp.maximum(0.0, x)),
+    "minimum": (lambda x: ad.minimum(x, 0.0), lambda x: jnp.minimum(x, 0.0)),
+    "clip": (lambda x: ad.clip(x, -1.0, 1.0),
+             lambda x: jnp.clip(x, -1.0, 1.0)),
+    "abs": (ad.abs, jnp.abs),
+    "pair": (lambda x: ad.maximum(x, x * 1.0), lambda x: jnp.maximum(x, x)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_TIES))
+def test_torch_dual_reverse_mode_ties_match_jax(name):
+    """Reverse mode through the plain-tensor helpers takes JAX's value at
+    ties (the two sides of a maximum/minimum one half each, abs +1 at 0),
+    not torch's (clamp_min passes the whole gradient, abs 0), and the
+    forward values equal torch's own ops bitwise."""
+    fn, jfn = _TIES[name]
+    for x0 in (0.0, -0.0, 1.0, -1.0, 0.5, -2.0):
+        x = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
+        y = fn(x)
+        g, = torch.autograd.grad(y, x)
+        assert g.item() == float(jax.grad(jfn)(x0)), (name, x0)
+        with torch.no_grad():
+            assert torch.equal(y.detach(), fn(x.detach())), (name, x0)
+            assert y.item() == float(jfn(x0)), (name, x0)
+
+
+def test_torch_fnn_hardtanh_bounds_grad_matches_jax():
+    """fnn's Hardtanh at exactly +-1 (and inside): the gradient with respect
+    to every weight equals jax.grad's (one half at the bounds)."""
+    params = _jax_params(0, hidden_dim=4)
+    params = {k: np.zeros_like(v) for k, v in params.items()}
+    params["w_in"][0, 0], params["w_in"][1, 1] = 1.0, 1.0
+    params["w_out"][0, 0], params["w_out"][1, 0] = 1.0, 0.5
+    x = np.array([[1.0, 0.0, 0.0], [0.0, 1.5, 0.0], [-1.0, 2.0, 0.0],
+                  [0.5, 0.5, 0.0]])      # outputs 1, 0.75, 1, 0.75
+
+    def jloss(p):
+        return jnp.sum(jfnn.apply(p, jnp.asarray(x), 1) * jnp.arange(1, 5)[
+            :, None])
+
+    want = jax.grad(jloss)(params)
+    p = {k: v.requires_grad_(True) for k, v in
+         interop.fnn_params_from_numpy(params, device="cpu").items()}
+    out = fnn.apply(p, torch.from_numpy(x))
+    assert out[:, 0].tolist() == [1.0, 0.75, 1.0, 0.75]
+    loss = (out * torch.arange(1, 5, dtype=torch.float64)[:, None]).sum()
+    grads = torch.autograd.grad(loss, list(p.values()), allow_unused=True)
+    for (k, v), g in zip(p.items(), grads):
+        g = torch.zeros_like(v) if g is None else g
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_torch_make_policy_uncached_grad_matches_jax():
+    """Through a 3-step closed loop from X0_REFERENCE (y_dot and z exactly
+    0), the gradient of the tracking cost with respect to the controller's
+    weights equals jax.grad of the JAX package's, when the policy reads the
+    live weights (cache=False); the cached policy cuts it."""
+    from forging_control_tpu.loop import closed_loop as jcl
+    from forging_control_tpu_torch.loop import closed_loop as cl
+
+    rng = np.random.RandomState(6)
+    params = _jax_params(6, hidden_dim=16)
+    (in_sc, out_sc), (jin, jout) = _scalers(rng)
+    refs = np.array([[0.3, 0.3, 0.3], [-0.2, -0.2, -0.2]])
+    loop = dict(t_steps=3, variant="smooth",
+                state_clip=(1.0, 10.0, 1e9, 1e9, 1.0))
+    x0 = np.tile(np.asarray(jcl.press.X0_REFERENCE), (2, 1))
+
+    def jcost(p):
+        ctrl = jcl.FunctionController(jfnn.make_policy(p, jin, jout))
+        _, tel = jcl.run_batch(jcl.LoopConfig(**loop), ctrl, jnp.asarray(x0),
+                               jnp.asarray(refs), jax.random.PRNGKey(0))
+        return jnp.mean(jnp.square(tel.x[..., 1] - tel.ref))
+
+    want = jax.grad(jcost)(params)
+    p = {k: v.requires_grad_(True) for k, v in
+         interop.fnn_params_from_numpy(params, device="cpu").items()}
+
+    def cost(cache):
+        ctrl = cl.FunctionController(fnn.make_policy(p, in_sc, out_sc,
+                                                     cache=cache))
+        _, tel = cl.run_batch(cl.LoopConfig(**loop), ctrl,
+                              torch.from_numpy(x0), torch.from_numpy(refs),
+                              device="cpu")
+        return torch.mean(torch.square(tel.x[..., 1] - tel.ref))
+
+    grads = torch.autograd.grad(cost(False), list(p.values()),
+                                allow_unused=True)
+    for (k, v), g in zip(p.items(), grads):
+        g = torch.zeros_like(v) if g is None else g
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[k]),
+                                   rtol=1e-9, atol=1e-13, err_msg=k)
+    assert not cost(True).requires_grad

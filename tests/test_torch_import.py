@@ -1,5 +1,6 @@
-"""The port stands alone: it imports without jax and without any module of
-the JAX package, and its smoke script refuses to run without a card."""
+"""The port stands alone: it imports without jax, without any module of the
+JAX package and without matplotlib, and its smoke script refuses to run
+without a card."""
 
 import os
 import shutil
@@ -14,15 +15,19 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["matplotlib"] = None   # the card's machine has no matplotlib
 import forging_control_tpu_torch
 from forging_control_tpu_torch import bench, cli, dual, interop, runtime
 from forging_control_tpu_torch import __main__
-from forging_control_tpu_torch.eval import metrics, report
-from forging_control_tpu_torch.nn import (datasets, fnn, lstm, scalers,
-                                          surrogate_eval, train)
+from forging_control_tpu_torch.eval import (html_dash, metrics, plots,
+                                            report, wide_panel)
+from forging_control_tpu_torch.nn import (datasets, fnn, lstm, mpc_loss,
+                                          scalers, surrogate_eval,
+                                          torch_compat, train)
 from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
 from forging_control_tpu_torch.pipelines import (config, generate_data,
-                                                 supervised, surrogate)
+                                                 supervised, surrogate,
+                                                 unsupervised)
 from forging_control_tpu_torch.solver import feasibility
 from forging_control_tpu_torch.utils import checkpoint
 import chip_smoke
@@ -30,7 +35,7 @@ loaded = sorted(m for m in sys.modules
                 if m == "forging_control_tpu"
                 or m.startswith("forging_control_tpu."))
 assert not loaded, loaded
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["matplotlib"] is None
 print("standalone ok")
 """
 

@@ -198,3 +198,38 @@ def test_torch_feasibility_and_recorded_controller_on_gpu():
     got = fnn.make_policy(params, in_sc, out_sc)(xm.cuda(), ref.cuda(), None)
     want = fnn.make_policy(p_cpu, in_sc, out_sc)(xm, ref, None)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_torch_mpc_loss_on_gpu_matches_cpu():
+    """The MPC loss (N = 10, noise drawn once on the CPU) and its gradient
+    with respect to the controller: card float64 against CPU float64,
+    rtol 1e-10; it runs the plain LSTM forward, which kernel B2 does not
+    replace (B2 has no backward), so no kernel launches."""
+    _need_card()
+    from forging_control_tpu_torch.nn import fnn, mpc_loss
+
+    gen = torch.Generator().manual_seed(0)
+    model = lstm.init(gen, dtype=torch.float64, device="cpu")
+    params, _ = fnn.init(gen, dtype=torch.float64, device="cpu")
+    x = torch.rand(15, 3, generator=gen, dtype=torch.float64) - 0.5
+    win = torch.rand(15, 10, 5, generator=gen, dtype=torch.float64) - 0.5
+    noise = torch.randn(10, 15, 4, generator=gen, dtype=torch.float64)
+
+    def run(device):
+        p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+        m = lstm.LSTMSurrogate(*[
+            [w.detach().to(device) for w in ws] if isinstance(ws, list)
+            else None if ws is None else ws.detach().to(device)
+            for ws in model.weights()])
+        xd = x.to(device)
+        loss, out = mpc_loss.mpc_loss(p, m, xd, fnn.apply(p, xd),
+                                      win.to(device), horizon=10,
+                                      noise=noise)
+        grads = torch.autograd.grad(loss, [p["w_in"], p["w_out"]])
+        return [t.detach().cpu() for t in (loss, out.prediction, *grads)]
+
+    before = lstm_ops.lstm_forward_cuda.launches
+    for a, b in zip(run("cuda"), run("cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-13)
+    assert lstm_ops.lstm_forward_cuda.launches == before

@@ -11,6 +11,7 @@ eager CPU ops in the port, and a recovered NN step about 3.5 s, and each
 closed loop runs twice), 2 epochs, ``latency_profile=False``.
 """
 
+import dataclasses
 import filecmp
 import functools
 from pathlib import Path
@@ -199,7 +200,8 @@ def test_torch_supervised_run_matches_jax(feasibility, tmp_path):
 
 def test_torch_supervised_run_without_training_or_eval():
     """Training off: the initial weights are evaluated and no losses are
-    recorded; closed_loop_eval off: no loop metrics; dagger is refused."""
+    recorded, in either train mode; closed_loop_eval off: no loop
+    metrics."""
     results = _dataset()
     cfg = config.SupervisedConfig(flags=config.Flags(enable_training=False))
     art = supervised.run(results, cfg, closed_loop_eval=False, device="cpu")
@@ -211,6 +213,8 @@ def test_torch_supervised_run_without_training_or_eval():
                                       results["z"].ravel()[:120],
                                       results["ref"].ravel()[:120]], 1))
     assert torch.equal(art.in_scaler.scale, sc.scale)
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        supervised.run(results, config.SupervisedConfig(train_mode="dagger"),
-                       device="cpu")
+    dag = supervised.run(results, dataclasses.replace(cfg,
+                                                      train_mode="dagger"),
+                         closed_loop_eval=False, device="cpu")
+    assert dag.train_report.train_losses == []
+    assert all(torch.equal(dag.params[k], want[k]) for k in want)
