@@ -27,7 +27,13 @@
 //     a_lo = tf32(a - a_hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi summed in
 //     float32. One TF32 pass misses the float32 bound of the JAX package
 //     (rtol 2e-5 / atol 2e-6 against `lstm_forward_torch`); three stay
-//     inside it (tests/test_torch_lstm.py emulates both);
+//     inside it (tests/test_torch_lstm.py emulates both). The tensor cores
+//     round every mma's sum toward zero, so the three passes of each k-step
+//     go into a fresh accumulator that is then added to the gate's float32
+//     sum with round to nearest: chained into one accumulator, the bias of
+//     24 such roundings a gate met the bound in one forward but compounded
+//     in a 290-step free-running rollout to ten times it (the test emulates
+//     both);
 //   * a block owns kMmaRows = 32 batch rows (two m16 tiles), so each weight
 //     fragment read from shared memory serves 32 rows; when the whole batch
 //     fits in one wave of 16-row blocks (B <= 16 x the SM count: the shadow
@@ -65,7 +71,8 @@
 // sigmoid is 1 / (1 + exp(-v)), with the precise expf, tanhf and division in
 // both variants, so the products are the only source of difference. The
 // simt variant sums the two products apart and then adds, as the plain
-// version does; the mma variant accumulates both into one float32 sum. T, I,
+// version does; the mma variant adds both, k-step by k-step, into one
+// float32 sum. T, I,
 // H, L, O and B are runtime values (H <= 256, L <= 16).
 //
 // The C interface takes raw device pointers (host arrays of L pointers for
@@ -187,9 +194,16 @@ __device__ __forceinline__ void gate_product(float (&acc)[MT][4][4],
       split_tf32(b.y, bhi1, blo1);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        mma_tf32(acc[m][q], alo[m], bhi0, bhi1);
-        mma_tf32(acc[m][q], ahi[m], blo0, blo1);
-        mma_tf32(acc[m][q], ahi[m], bhi0, bhi1);
+        // A fresh accumulator per k-step: the tensor cores round each sum
+        // toward zero, so chaining all of a gate's mma into acc biases it
+        // by up to one float32 ulp per mma (24 a gate at H = 50); here only
+        // within one k-step, and acc adds it with round to nearest.
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, alo[m], bhi0, bhi1);
+        mma_tf32(d, ahi[m], blo0, blo1);
+        mma_tf32(d, ahi[m], bhi0, bhi1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][q][e] += d[e];
       }
     }
   }

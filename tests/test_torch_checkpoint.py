@@ -298,7 +298,8 @@ def test_torch_recorded_unsupervised_metrics_on_cpu():
     assert meta == {"width_dim": 1, "train_mode": "dagger",
                     "pipeline": "unsupervised"}
     results = generate_data.load(str(UNSUP_DATASET))
-    got, launches = chip_smoke.recorded_unsupervised_metrics(results, "cpu")
+    got, launches, _ = chip_smoke.recorded_unsupervised_metrics(
+        results, "cpu")
     want = _jax_recorded_unsupervised()
     pinned = chip_smoke.RECORDED_UNSUP
     for name, rtol in chip_smoke.UNSUP_LOSS_RTOL.items():

@@ -205,6 +205,129 @@ def test_torch_lstm_3xtf32_products_meet_the_float32_bound():
     assert excess(_lstm_forward_with(x, *w, one_pass)) > 1e-4
 
 
+def _one_pass(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _three_pass(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _round_to_zero(x):
+    """float64 -> float32 (numpy), rounded toward zero, as a tensor core
+    rounds the sum of an mma."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _mma_product(acc, a, w, per_kstep):
+    """acc + a @ w (numpy float32) as the mma variant of kernel B2 takes it:
+    K padded to a multiple of 8, three TF32 passes a k-step (a_lo b_hi,
+    a_hi b_lo, a_hi b_hi), each an exact sum of 8 products rounded toward
+    zero with the accumulator it adds to; that accumulator is ``acc``
+    itself (``per_kstep`` false) or a fresh one per k-step, then added to
+    ``acc`` with round to nearest."""
+    nk = -(-a.shape[-1] // 8)
+    a = np.pad(a, ((0, 0), (0, 8 * nk - a.shape[-1])))
+    w = np.pad(w, ((0, 8 * nk - w.shape[0]), (0, 0)))
+    a_hi, w_hi = (_tf32(torch.from_numpy(v)).numpy() for v in (a, w))
+    a_lo, w_lo = (_tf32(torch.from_numpy(v - h)).numpy()
+                  for v, h in ((a, a_hi), (w, w_hi)))
+    parts = [np.einsum("bkj,kjn->kbn",
+                       x.reshape(len(x), nk, 8).astype(np.float64),
+                       y.reshape(nk, 8, -1).astype(np.float64))
+             for x, y in ((a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi))]
+    for k in range(nk):
+        d = np.zeros_like(acc) if per_kstep else acc
+        for p in parts:
+            d = _round_to_zero(d + p[k])
+        acc = (acc.astype(np.float64) + d).astype(np.float32) \
+            if per_kstep else d
+    return acc
+
+
+def _lstm_forward_mma(x, w_ih, w_hh, w_out, b_out, per_kstep):
+    """The mma variant's recurrence, layer by layer; the hidden product is
+    skipped at t = 0, where h is zero."""
+    H = w_hh[0].shape[0]
+    w_ih, w_hh = [w.numpy() for w in w_ih], [w.numpy() for w in w_hh]
+    h = [x.new_zeros(x.shape[0], H) for _ in w_hh]
+    c = [x.new_zeros(x.shape[0], H) for _ in w_hh]
+    for t in range(x.shape[1]):
+        inp = x[:, t]
+        for l, (wi, wh) in enumerate(zip(w_ih, w_hh)):
+            acc = _mma_product(np.zeros((x.shape[0], 4 * H), np.float32),
+                               inp.numpy(), wi, per_kstep)
+            if t > 0:
+                acc = _mma_product(acc, h[l].numpy(), wh, per_kstep)
+            i, f, g, o = torch.from_numpy(acc).split(H, -1)
+            c[l] = torch.sigmoid(f) * c[l] + torch.sigmoid(i) * torch.tanh(g)
+            h[l] = torch.sigmoid(o) * torch.tanh(c[l])
+            inp = h[l]
+    return h[-1] @ w_out + b_out
+
+
+@pytest.fixture(scope="module")
+def recorded_drift():
+    """chip_smoke.py phase 8a's drift rollout on the CPU: the recorded
+    surrogate's weights, the feature track of the recorded unsupervised
+    controller's closed loop, and the plain forward's 290 predictions."""
+    import chip_smoke
+    from forging_control_tpu_torch.pipelines import generate_data
+    results = generate_data.load(str(chip_smoke.REPO / chip_smoke.SUP_DATASET))
+    _, _, (model, _, track, plain) = chip_smoke.recorded_unsupervised_metrics(
+        results, "cpu")
+    w_ih, w_hh, w_out, b_out = model.weights()
+    w = ([a.detach() for a in w_ih], [a.detach() for a in w_hh],
+         w_out.detach(), b_out.detach())
+    return model, w, track, plain
+
+
+@pytest.mark.parametrize("products, sound", [
+    ("three TF32 passes, round to nearest", True),
+    ("one TF32 pass", False),
+    ("mma, one accumulator a gate", False),
+    ("mma, a fresh accumulator a k-step", True)])
+def test_torch_lstm_mma_drift_within_the_smoke_bound(recorded_drift, products,
+                                                     sound):
+    """The free-running drift of chip_smoke.py phase 8a (the recorded
+    surrogate rolled 290 steps along the recorded unsupervised controller's
+    closed loop, one window at a time), on the CPU with kernel B2's gate
+    products emulated.  A sound kernel stays within the smoke run's bounds
+    of the JAX package's pinned drift metrics (``chip_smoke.DRIFT_TOL``)
+    and within check_lstm's float32 bound of the plain rollout at every
+    step: three TF32 passes summed with round to nearest, and the mma
+    variant as it is, whose tensor cores round each mma's sum toward zero
+    into a fresh accumulator per k-step.  One TF32 pass leaves both, and so
+    does the mma variant with all 24 mma of a gate chained into one
+    accumulator, which met check_lstm's bound in one forward and read the
+    R^2 of p1 2.07e-4 off on an H100."""
+    import types
+
+    import chip_smoke
+    from forging_control_tpu_torch.nn import surrogate_eval as se
+    model, w, track, plain = recorded_drift
+    forward = {
+        "three TF32 passes, round to nearest":
+            lambda x: _lstm_forward_with(x, *w, _three_pass),
+        "one TF32 pass": lambda x: _lstm_forward_with(x, *w, _one_pass),
+        "mma, one accumulator a gate":
+            lambda x: _lstm_forward_mma(x, *w, False),
+        "mma, a fresh accumulator a k-step":
+            lambda x: _lstm_forward_mma(x, *w, True)}[products]
+    preds = se.free_running(
+        types.SimpleNamespace(w_out=model.w_out, infer=forward), track, 10)
+    got = se.fidelity_metrics(preds[:-1], track[11:, :4])
+    excess = max(abs(got[k] - v) - chip_smoke.DRIFT_TOL[k.split("_")[0]]
+                 for k, v in chip_smoke.RECORDED_UNSUP["drift"].items())
+    share = ((preds - plain).abs() / (2e-6 + 2e-5 * plain.abs())).max().item()
+    if sound:
+        assert excess <= 0 and share <= 1, (excess, share)
+    else:
+        assert excess > 0 and share > 1, (excess, share)
+
 def test_torch_lstm_kernel_variant_by_shape_and_dtype():
     """The main path's float32 shape (T = 10, I = 5, H = 50) takes the mma
     kernel; float64 and H = 256 the simt kernel; the boundary at T = 10 lies
