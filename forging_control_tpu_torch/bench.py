@@ -5,9 +5,13 @@ benchmark): the full closed-loop engine (batched MPC solve + RK4 plant +
 telemetry) over a scenario batch, reported as closed-loop MPC solves per
 second.  Run it as ``python -m forging_control_tpu_torch.bench``; it prints
 ONE JSON line with ``bench.py``'s keys (without XLA's cost-analysis fields)
-plus ``device`` (the card's name and power limit), ``steps`` and
+plus ``device`` (the card's name and power limit), ``steps``,
 ``chol_kernel_launches`` (launches of the Cholesky kernel in one T-step
-run).
+run) and ``kernel_check``: before it times anything, a run on the SQP
+backend's kernel solve (``linsolve="kernel"``) takes one control step at
+B = 64 through the kernel and through the plain solve on the same inputs
+and refuses to go on unless the commands agree within 1e-4
+(:func:`kernel_check`; None on the iLQR backend, which has no kernel).
 
 Env knobs, with ``bench.py``'s defaults: BENCH_BATCH (4096), BENCH_STEPS
 (300), BENCH_HORIZON (10), BENCH_REPS (3), BENCH_BACKEND ("ilqr"; "sqp" for
@@ -132,11 +136,51 @@ def _runner(N, B, T, preset, backend, device, linsolve, seed, dtype):
     return run
 
 
+CHECK_BATCH = 64
+CHECK_TOL = 1e-4       # commands are O(0.1); the closed loop damps rounding
+
+
+def kernel_check(N, preset, *, device="cuda", seed=0,
+                 dtype=torch.float32) -> dict:
+    """One control step of the SQP closed loop at B = ``CHECK_BATCH``
+    through the kernel solve and through the plain one
+    (``chol_solve_torch``), from the same states and references.  The two
+    do the same arithmetic apart from the linear solve's rounding.  Returns
+    the largest command gap, the tolerance and the kernel's launches;
+    raises if the gap exceeds ``CHECK_TOL`` or a command is not finite."""
+    device = resolve_device(device)
+    cfg = PRESETS[preset](horizon=N, variant="smooth")
+    refs = streams.sample_references(torch.Generator().manual_seed(seed),
+                                     CHECK_BATCH, "supervised", t_steps=1,
+                                     dtype=dtype, device=device)
+    x0 = torch.tensor(X0_REFERENCE, dtype=dtype,
+                      device=device).repeat(CHECK_BATCH, 1)
+    launches0 = chol_solve_cuda.launches
+    u = {ls: run_batch(LoopConfig(t_steps=1, variant="smooth"),
+                       MPCController(cfg, linsolve=ls), x0, refs,
+                       device=device)[1].u
+         for ls in ("kernel", "plain")}
+    du = float((u["kernel"] - u["plain"]).abs().max())
+    rec = {"batch": CHECK_BATCH, "steps": 1, "max_abs_du": du,
+           "tolerance": CHECK_TOL,
+           "chol_kernel_launches": chol_solve_cuda.launches - launches0}
+    if not (bool(torch.isfinite(u["kernel"]).all()) and du <= CHECK_TOL):
+        raise RuntimeError(f"kernel check failed: the kernel and plain "
+                           f"solves' commands differ by {du:.3e} at "
+                           f"B = {CHECK_BATCH} (tolerance {CHECK_TOL})")
+    return rec
+
+
 def run_bench(N, B, T, reps, preset, backend, *, device="cuda",
               linsolve="kernel", seed=0, dtype=torch.float32):
     """Time ``reps`` closed-loop runs of T steps over B scenarios after one
-    warm-up run; returns the JSON record (best run)."""
+    warm-up run; returns the JSON record (best run).  On the SQP backend's
+    kernel solve, :func:`kernel_check` passes first."""
     device = resolve_device(device)
+    check = None
+    if backend == "sqp" and linsolve == "kernel":
+        check = kernel_check(N, preset, device=device, seed=seed,
+                             dtype=dtype)
     run = _runner(N, B, T, preset, backend, device, linsolve, seed, dtype)
 
     # Warm-up (first-call set-up: kernel build and load, library handles);
@@ -162,6 +206,7 @@ def run_bench(N, B, T, reps, preset, backend, *, device="cuda",
         "steps": T,
         "device": device_info(device),
         "chol_kernel_launches": launches,
+        "kernel_check": check,
     }
     if N != 10:
         rec["vs_baseline_note"] = (

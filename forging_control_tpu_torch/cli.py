@@ -1,7 +1,9 @@
 """Command-line entry points of the port.
 
-Port of ``forging_control_tpu/cli.py``, with the same subcommands, flags and
-single JSON line of results, printed to standard output:
+Port of ``forging_control_tpu/cli.py``, with the same subcommands and flags.
+Each subcommand logs its single JSON line of results through the package
+logger (``utils/logging``), whose handler writes to standard error, as the
+JAX CLI does:
 
     python -m forging_control_tpu_torch generate --n-traj 80 --horizon 25
     python -m forging_control_tpu_torch sweep --horizons 5 10 15 20 25
@@ -13,9 +15,9 @@ Every subcommand runs on ``--device`` (default ``cuda``; ``cpu`` only when
 asked).  ``surrogate`` reads its files in ``sorted(glob)`` order per
 pattern, as the JAX package's CLI does (so ``N_10`` comes before ``N_5``).
 ``--plots`` writes the HTML dashboards (``eval/html_dash``) and the PNGs
-(``eval/plots``, which needs matplotlib) under ``<out>/Images/`` and names
-them on standard error.  ``generate --export-pkl`` (``utils/dompc_pickle``)
-waits for its module (ROADMAP Queue A 14) and is refused with a message.
+(``eval/plots``, which needs matplotlib) under ``<out>/Images/`` and logs
+their paths.  ``generate --export-pkl`` also writes the dataset as the
+reference's do-mpc pickle (``utils/dompc_pickle``) beside the npz.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import sys
 import time
 
 from .pipelines import config as pcfg
+from .utils.logging import get_logger
+
+log = get_logger()
 
 
 def _flags(args) -> pcfg.Flags:
@@ -39,14 +44,14 @@ def _flags(args) -> pcfg.Flags:
 
 
 def _emit(rec: dict) -> None:
-    print(json.dumps(rec), flush=True)
+    log.info(json.dumps(rec))
 
 
 def _emit_dashboards(telem, out_dir: str, tag: str):
     """Interactive HTML dashboards (the reference's Plotly pages with the
     per-trajectory slider; Generate Data/Main.py:120-262) and PNGs matching
     the reference's results/Images/ files (Supervised Learning/
-    Functions.py:1557-1565); their paths go to standard error."""
+    Functions.py:1557-1565); their paths are logged."""
     import os
 
     from .eval import html_dash, plots
@@ -63,7 +68,7 @@ def _emit_dashboards(telem, out_dir: str, tag: str):
         import matplotlib.pyplot as plt
         plt.close(fig)
         outs.append(png)
-    print(json.dumps({"dashboards": outs}), file=sys.stderr, flush=True)
+    _emit({"dashboards": outs})
 
 
 def cmd_generate(args):
@@ -80,6 +85,11 @@ def cmd_generate(args):
     path = generate_data.dataset_path(args.out, cfg.horizon)
     generate_data.save(results, path)
     summ = generate_data.summarize(results)
+    if args.export_pkl:
+        from .utils import dompc_pickle
+        pkl = path[:-4] + ".pkl"
+        dompc_pickle.save(pkl, results)
+        summ["dataset_pkl"] = pkl
     summ["backend"] = args.backend
     summ["wall_s"] = round(wall_s, 2)
     summ["solves"] = cfg.n_traj * cfg.t_traj
@@ -180,7 +190,8 @@ def main(argv=None):
                    help="solver backend (auto: condensed SQP for N<=12, "
                         "Riccati iLQR beyond)")
     g.add_argument("--export-pkl", action="store_true",
-                   help="not ported yet (utils/dompc_pickle)")
+                   help="also write the dataset in the reference's do-mpc "
+                        "pickle format (<dataset>.pkl)")
     g.set_defaults(fn=cmd_generate)
 
     sw = sub.add_parser("sweep", help="multi-horizon dataset sweep")
@@ -239,9 +250,6 @@ def main(argv=None):
     us.set_defaults(fn=cmd_unsupervised)
 
     args = p.parse_args(argv)
-    if getattr(args, "export_pkl", False):
-        p.error("--export-pkl needs utils/dompc_pickle, which the port does "
-                "not have yet (ROADMAP Queue A 14)")
     return args.fn(args)
 
 

@@ -393,3 +393,9 @@ def native_mpc_latency(loop_cfg: LoopConfig, mpc_cfg, refs, *,
         us[t] = u
         u_prev = u
     return xs, us, times
+
+
+def default_x0(dtype=torch.float64, device="cuda") -> torch.Tensor:
+    """The reference's initial state ``press.X0_REFERENCE`` (5,)."""
+    return torch.tensor(press.X0_REFERENCE, dtype=dtype,
+                        device=resolve_device(device))

@@ -24,8 +24,12 @@ launch per epoch.  The MPC-loss step differentiates the same autograd
 forward.  Where the JAX package draws from ``jax.random`` (batch tables,
 MPC-loss noise, reference streams, plant noise) the port draws from a
 ``torch.Generator`` and takes the draws as optional arguments, so parity
-runs pass the JAX package's in.  The JAX package's ``mesh`` sharding of the
-batches is not ported (one card; ROADMAP Queue A 13).
+runs pass the JAX package's in.  ``train_supervised`` and
+``train_surrogate`` take a ``mesh`` (``parallel.mesh``): each rank then
+trains on its rows of every batch and the gradients and the loss are
+all-reduce-averaged before the step, so the ranks stay in step with the
+full batch's run; a batch that does not divide over the ranks stays whole
+on every rank, as the JAX package keeps it local.
 """
 
 from __future__ import annotations
@@ -77,10 +81,36 @@ def _tables(perms, epoch, gen, n, batch_size, device):
     return table.to(device)
 
 
+def _rank_rows(mesh, idx):
+    """(this rank's rows of a batch's index table, whether the batch is
+    split): the whole batch without a mesh or when its size does not divide
+    over the mesh's ranks."""
+    if mesh is None or len(idx) % mesh.size:
+        return idx, False
+    n = len(idx) // mesh.size
+    return idx[mesh.rank * n:(mesh.rank + 1) * n], True
+
+
+def _average_grads(mesh, params) -> None:
+    """All-reduce mean of every parameter's gradient, in place."""
+    from ..parallel.mesh import all_mean
+    params = list(params)
+    for v, g in zip(params, all_mean([v.grad for v in params], mesh)):
+        v.grad.copy_(g)
+
+
+def _step_loss(mesh, loss, split):
+    """A step's loss for the report: the full batch's when it was split."""
+    if not split:
+        return loss.detach()
+    from ..parallel.mesh import all_mean
+    return all_mean(loss, mesh)
+
+
 def train_supervised(params, x_train, y_train, x_val, y_val, *,
                      width_dim=1, lr=1e-3, weight_decay=1e-2, epochs=20,
                      batch_size=256, loss_fn=l1_loss, seed=0, perms=None,
-                     log_fn: Callable | None = None):
+                     log_fn: Callable | None = None, mesh=None):
     """Supervised imitation trainer: the FNN mimics recorded MPC commands.
 
     ``params`` (a dict of tensors, ``nn/fnn.py``) is copied and the copy
@@ -88,7 +118,8 @@ def train_supervised(params, x_train, y_train, x_val, y_val, *,
     and promoted with the weights' dtype, as JAX promotes them.  Returns
     (trained params, :class:`TrainReport`).  ``perms`` and the batch tables
     drawn without it are as in :func:`train_surrogate`; ``torch.optim.AdamW``
-    with its defaults is the arithmetic of ``optax.adamw``."""
+    with its defaults is the arithmetic of ``optax.adamw``.  ``mesh``:
+    data-parallel batches (see the module docstring)."""
     device = params["w_in"].device
     p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
 
@@ -111,11 +142,14 @@ def train_supervised(params, x_train, y_train, x_val, y_val, *,
     for epoch in range(epochs):
         losses = []
         for idx in _tables(perms, epoch, gen, len(xt), batch_size, device):
+            idx, split = _rank_rows(mesh, idx)
             loss = loss_fn(fnn.apply(p, xt[idx], width_dim), yt[idx])
             opt.zero_grad(set_to_none=False)
             loss.backward()
+            if split:
+                _average_grads(mesh, p.values())
             opt.step()
-            losses.append(loss.detach())
+            losses.append(_step_loss(mesh, loss, split))
         with torch.no_grad():
             val = loss_fn(fnn.apply(p, xv, width_dim), yv)
         report.train_losses.append(float(torch.stack(losses).mean()))
@@ -587,7 +621,7 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
 
 def train_surrogate(model, x_train, y_train, x_val, y_val, *, lr=1e-3,
                     weight_decay=1e-2, epochs=50, batch_size=256, seed=0,
-                    perms=None, log_fn: Callable | None = None):
+                    perms=None, log_fn: Callable | None = None, mesh=None):
     """LSTM surrogate trainer: teacher-forced next-step MSE.
 
     ``model`` (an ``LSTMSurrogate``) is trained in place on its own device
@@ -599,7 +633,8 @@ def train_surrogate(model, x_train, y_train, x_val, y_val, *, lr=1e-3,
 
     ``torch.optim.AdamW(lr, weight_decay)`` with its defaults (beta =
     0.9/0.999, eps = 1e-8, decay on every parameter) is the arithmetic of
-    ``optax.adamw``.
+    ``optax.adamw``.  ``mesh``: data-parallel batches (see the module
+    docstring).
     """
     device = x_train.device
     opt = torch.optim.AdamW(model.parameters(), lr=lr,
@@ -612,11 +647,14 @@ def train_surrogate(model, x_train, y_train, x_val, y_val, *, lr=1e-3,
     for epoch in range(epochs):
         losses = []
         for idx in _tables(perms, epoch, gen, n, batch_size, device):
+            idx, split = _rank_rows(mesh, idx)
             loss = mse_loss(model(x_train[idx]), y_train[idx])
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if split:
+                _average_grads(mesh, model.parameters())
             opt.step()
-            losses.append(loss.detach())
+            losses.append(_step_loss(mesh, loss, split))
         val = mse_loss(model.infer(x_val), y_val)
         report.train_losses.append(float(torch.stack(losses).mean()))
         report.val_losses.append(float(val))

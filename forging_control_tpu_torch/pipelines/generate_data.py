@@ -94,14 +94,15 @@ def save(results: dict, path: str) -> None:
 
 
 def load(path: str) -> dict:
-    """Load an ``.npz`` dataset.  The reference's pickled do-mpc ``.pkl``
-    results need ``utils/dompc_pickle``, which is not ported yet (ROADMAP
-    Queue A 14): such a path raises."""
+    """Load a dataset: an ``.npz`` of either package, or a reference do-mpc
+    ``.pkl`` (``Data/forging_mult_traj_*.pkl``), read without do-mpc by
+    ``utils/dompc_pickle`` and converted to the same schema (its ``mpc``
+    record, else its first)."""
     if path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{path}: reading do-mpc .pkl results needs utils/dompc_pickle, "
-            "which the port does not have yet (ROADMAP Queue A 14); convert "
-            "it to .npz with the JAX package")
+        from ..utils import dompc_pickle
+        recs = dompc_pickle.load(path)
+        key = "mpc" if "mpc" in recs else next(iter(recs))
+        return dompc_pickle.to_results(recs[key])
     with np.load(path) as f:
         return {k: f[k] for k in f.files}
 

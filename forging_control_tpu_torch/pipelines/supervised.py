@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..eval import metrics, report
 from ..loop import closed_loop as cl
 from ..nn import datasets, fnn, scalers, train
+from ..parallel import mesh as pmesh
 from ..refgen import streams
 from ..solver import feasibility, sqp
 from ..utils import checkpoint
@@ -148,7 +149,7 @@ def run(results: dict, cfg: SupervisedConfig = SupervisedConfig(), *,
             return train.train_supervised(
                 initial(s), xtr, ytr, xva, yva, width_dim=cfg.width_dim,
                 lr=cfg.lr, epochs=cfg.epochs, batch_size=cfg.batch_size,
-                seed=s, perms=perms)
+                seed=s, perms=perms, mesh=pmesh.default_mesh(device=device))
 
         best = None
         for k in range(max(1, cfg.n_seeds)):

@@ -19,6 +19,7 @@ import torch
 from .. import interop
 from ..device import resolve_device
 from ..nn import datasets, lstm, scalers, surrogate_eval, train
+from ..parallel import mesh as pmesh
 from .config import SurrogateConfig
 
 SURROGATE_FEATURES = ("y_dot", "p1", "p2", "z", "u")
@@ -37,7 +38,8 @@ class SurrogateArtifacts:
 @dataclasses.dataclass
 class SurrogateData:
     """The scaler fitted on the training split and the (x, y) windows of
-    the three splits, on the device in the run's dtype."""
+    the three splits, on the device in the run's dtype (their values
+    rounded through float32, as the JAX package casts them)."""
 
     scaler: scalers.Scaler
     train: tuple
@@ -58,10 +60,11 @@ def prepare(results_list, lookback: int, *, scaler=None, dtype=torch.float32,
     """Flatten, split 60/20/20 in order, fit MaxAbs on the training split
     (or use ``scaler``), scale, and build per-trajectory windows.
 
-    Scaling runs in float64 on the host, and the windows are cast to
-    ``dtype`` once, afterwards, and moved to the device once.  (The JAX
-    pipeline scales through jnp, which is float64 under its tests' x64 and
-    float32 on a TPU, and always casts the windows to float32.)"""
+    Scaling runs in float64 on the host.  The windows are then rounded to
+    float32 whatever ``dtype`` is, as the JAX pipeline casts them, and cast
+    to ``dtype`` and moved to the device once: a float64 run computes on
+    float32 windows, as JAX promotes float32 inputs with float64
+    weights."""
     device = resolve_device(device)
     table = flatten_datasets(results_list).astype(np.float64)
     tr, va, te = datasets.split_603030(len(table))
@@ -71,8 +74,8 @@ def prepare(results_list, lookback: int, *, scaler=None, dtype=torch.float32,
     def windows_for(sl):
         x, y = datasets.windows(scaled[sl], scaled[sl][:, :4], lookback,
                                 traj_len=TRAJ_LEN)
-        return (torch.from_numpy(x).to(device, dtype),
-                torch.from_numpy(y).to(device, dtype))
+        return (torch.from_numpy(x.astype(np.float32)).to(device, dtype),
+                torch.from_numpy(y.astype(np.float32)).to(device, dtype))
 
     return SurrogateData(sc, windows_for(tr), windows_for(va),
                          windows_for(te))
@@ -102,7 +105,8 @@ def run(results_list, cfg: SurrogateConfig = SurrogateConfig(), *,
     if cfg.flags.enable_training:
         model, rep = train.train_surrogate(
             model, *data.train, *data.val, lr=cfg.lr, epochs=cfg.epochs,
-            batch_size=cfg.batch_size, seed=seed, perms=perms)
+            batch_size=cfg.batch_size, seed=seed, perms=perms,
+            mesh=pmesh.default_mesh(device=device))
     else:
         rep = train.TrainReport()
 

@@ -85,8 +85,9 @@ def prepare_data(results: dict, state_scaler, cfg: UnsupervisedConfig,
     recurrent surrogate windows; every-N-th resampling (Main.py:282-309).
 
     Returns the (x, u, window) triples of the training, validation and
-    test splits as NumPy arrays in ``dtype`` (the JAX package always casts
-    them to float32), then in_sc and u_sc."""
+    test splits as NumPy arrays in ``dtype``, their values rounded through
+    float32 as the JAX package casts them whatever its dtype, then in_sc
+    and u_sc."""
     y_dot, z, ref = (np.asarray(results[k]).ravel() for k in
                      ("y_dot", "z", "ref"))
     u = np.asarray(results["u"]).ravel()[:, None]
@@ -110,7 +111,8 @@ def prepare_data(results: dict, state_scaler, cfg: UnsupervisedConfig,
             feats[sl], targ[sl], track_s[sl], cfg.lookback,
             traj_len=TRAJ_LEN)
         keep = datasets.resample_every(len(x), cfg.horizon)
-        return tuple(a[keep].astype(np_dtype) for a in (x, y, zz))
+        return tuple(a[keep].astype(np.float32).astype(np_dtype)
+                     for a in (x, y, zz))
 
     return triples(tr), triples(va), triples(te), in_sc, u_sc
 
@@ -124,18 +126,19 @@ def _full_density(results: dict, in_sc, u_sc, dtype=torch.float32):
     the plant pretrain's imitation set (the every-N-th MPC-loss resampling
     starves it): within each trajectory, (y_dot[t], z[t], ref[t+1]) ->
     u[t+1], since a telemetry row pairs the post-step state with the
-    command that produced it.  The pairs are cast to ``dtype`` (the JAX
-    package casts them to float32).  Returns (x_train, u_train, x_val,
-    u_val)."""
+    command that produced it.  As in the JAX package, the raw pairs and the
+    scaled commands are rounded through float32 whatever the dtype, and
+    cast to ``dtype``.  Returns (x_train, u_train, x_val, u_val)."""
     np_dtype = _np_dtype(dtype)
     y_dot, z, ref, u = (np.asarray(results[k]) for k in
                         ("y_dot", "z", "ref", "u"))
-    feats = np.stack([y_dot[:, :-1], z[:, :-1], ref[:, 1:]],
-                     axis=-1).reshape(-1, 3).astype(np_dtype)
-    targ = u[:, 1:].reshape(-1, 1).astype(np_dtype)
+    feats = np.stack([y_dot[:, :-1], z[:, :-1], ref[:, 1:]], axis=-1)
+    feats = feats.reshape(-1, 3).astype(np.float32).astype(np_dtype)
+    targ = u[:, 1:].reshape(-1, 1).astype(np.float32).astype(np_dtype)
     tr, va, _ = datasets.split_603030(len(feats))
     feats_s = in_sc.transform(torch.from_numpy(feats)).numpy()
-    targ_s = u_sc.transform(torch.from_numpy(targ)).numpy().astype(np_dtype)
+    targ_s = u_sc.transform(torch.from_numpy(targ)).numpy()
+    targ_s = targ_s.astype(np.float32).astype(np_dtype)
     return feats_s[tr], targ_s[tr], feats_s[va], targ_s[va]
 
 

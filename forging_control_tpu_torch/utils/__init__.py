@@ -1,1 +1,5 @@
-"""Utilities: checkpoints in the JAX package's npz format."""
+"""Utilities: checkpoints (the JAX package's npz format and dcp
+directories), do-mpc pickles, logging, timing, progress, notifications and
+profiling."""
+
+from . import checkpoint, notify, profiling, progress, timer  # noqa: F401

@@ -1,11 +1,19 @@
-"""Checkpoints in the JAX package's ``.npz`` format.
+"""Checkpoints: the JAX package's ``.npz`` format, and directories.
 
 Port of the ``.npz`` path of ``forging_control_tpu/utils/checkpoint.py``
 (``:19-46``): a tree of arrays is saved as ``path`` (``np.savez_compressed``
 of its leaves, ``arr_0``, ``arr_1``, ...) plus ``path.meta.json``.  Leaves
 go in ``jax.tree.flatten``'s order — dict keys sorted, lists and tuples in
 order, NamedTuples in field order, None holding no leaf — so a checkpoint
-written by either package loads in the other.  orbax is not ported.
+written by either package loads in the other: the npz path is the
+interchange between the two packages.
+
+:func:`save_orbax` / :func:`load_orbax` keep the JAX package's names for its
+directory checkpoints (``:55-74``), whose orbax imports jax.  Here they
+write and read ``torch.distributed.checkpoint``'s directory format, with the
+same ``path.meta.json`` sidecar, so :func:`load_meta` reads either path.
+Neither package reads the other's directories.  They run without a process
+group; with one, every rank calls them and each writes its own part.
 
 :func:`load_surrogate` reads a ``{"params": ..., "scaler": ...}`` surrogate
 checkpoint (what ``surrogate --save`` writes) into the port's
@@ -20,6 +28,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -99,6 +108,58 @@ def load(path: str, like):
 def load_meta(path: str) -> dict:
     with open(path + ".meta.json") as f:
         return json.load(f)["meta"]
+
+
+def _dcp_state(leaves) -> dict:
+    """The flat state dict of a tree's leaves, ``arr_0``, ``arr_1``, ... as
+    in the npz path; NumPy leaves become CPU tensors, tensors stay where they
+    are."""
+    return {f"arr_{i}": (leaf.detach() if isinstance(leaf, torch.Tensor)
+                         else torch.from_numpy(np.array(leaf)))
+            for i, leaf in enumerate(leaves)}
+
+
+def _dcp(fn, state, **kw):
+    """``fn`` (``dcp.save`` or ``dcp.load``) of ``state``.  Without a process
+    group dcp runs in this process alone, and a save replaces an existing
+    checkpoint; both are meant here, so dcp's warnings that they happen are
+    dropped."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is "
+                                "disabled, unavailable or uninitialized")
+        warnings.filterwarnings("ignore",
+                                message="Detected an existing checkpoint")
+        fn(state, **kw)
+
+
+def save_orbax(path: str, tree, meta: dict | None = None) -> None:
+    """Save a tree of tensors or arrays as a ``torch.distributed.checkpoint``
+    directory at ``path``, plus ``path.meta.json`` (written by rank 0)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    # Overwrite an existing checkpoint, as the JAX package's (force=True).
+    _dcp(dcp.save, _dcp_state(_flatten(tree)),
+         storage_writer=dcp.FileSystemWriter(path, overwrite=True))
+    if not torch.distributed.is_initialized() \
+            or torch.distributed.get_rank() == 0:
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"meta": meta or {}}, f)
+
+
+def load_orbax(path: str, like):
+    """Restore a tree saved by :func:`save_orbax` into ``like``'s structure:
+    each leaf takes the type, shape, dtype and device of ``like``'s leaf
+    (a tensor or a NumPy array)."""
+    import torch.distributed.checkpoint as dcp
+
+    leaves = _flatten(like)
+    state = {k: torch.empty_like(v) for k, v in _dcp_state(leaves).items()}
+    _dcp(dcp.load, state, checkpoint_id=os.path.abspath(path))
+    out = [state[f"arr_{i}"] if isinstance(leaf, torch.Tensor)
+           else state[f"arr_{i}"].numpy() for i, leaf in enumerate(leaves)]
+    return _unflatten(like, iter(out))
 
 
 def surrogate_tree(model, scaler) -> dict:

@@ -1,5 +1,6 @@
-"""The port's bench entry: preset resolution and the one-line record, at a
-tiny size on the CPU (its numbers there are not device numbers)."""
+"""The port's bench entry: preset resolution, the one-line record and the
+kernel check before timing, at a tiny size on the CPU (its numbers there
+are not device numbers)."""
 
 import json
 from pathlib import Path
@@ -28,9 +29,36 @@ def test_torch_run_bench_record_on_cpu():
     # On the CPU the dispatcher takes the plain solve: no kernel launch.
     assert rec["chol_kernel_launches"] == 0
     assert rec["backend"] == "sqp" and rec["linsolve"] == "kernel"
+    # The check ran first: on the CPU both paths take the plain solve.
+    assert rec["kernel_check"] == {"batch": 64, "steps": 1, "max_abs_du": 0.0,
+                                   "tolerance": 1e-4,
+                                   "chol_kernel_launches": 0}
     json.dumps(rec)
     with pytest.raises(ValueError, match="card"):
         bench.profile_run(5, 3, 1, "fast_5x1", "sqp", device="cpu")
+
+
+def test_torch_run_bench_refuses_to_time_a_wrong_kernel(monkeypatch):
+    """``run_bench`` on the SQP's kernel solve refuses to time when the
+    kernel path's solve is off: here the solve that ``linsolve="kernel"``
+    dispatches to is perturbed by 10 %, which moves the B = 64 step's
+    commands past 1e-4; nothing is timed.  The iLQR backend has no kernel
+    and skips the check."""
+    from forging_control_tpu_torch.ops import smallchol
+    from forging_control_tpu_torch.solver import sqp
+
+    monkeypatch.setattr(sqp, "chol_solve", lambda H, g: 1.1 * smallchol
+                        .chol_solve_torch(H, g))
+    timed = []
+    monkeypatch.setattr(bench, "_runner", lambda *a: timed.append(a))
+    with pytest.raises(RuntimeError, match="kernel check failed"):
+        bench.run_bench(5, 3, 1, 1, "fast_5x1", "sqp", device="cpu")
+    assert timed == []
+    with pytest.raises(RuntimeError, match="kernel check failed"):
+        bench.kernel_check(5, "fast_5x1", device="cpu")
+    monkeypatch.undo()
+    rec = bench.run_bench(5, 3, 1, 1, "fast_5x1", "ilqr", device="cpu")
+    assert rec["kernel_check"] is None
 
 
 def test_torch_device_busy_unions_kernel_intervals():

@@ -1,16 +1,26 @@
 """The port's CLI (``python -m forging_control_tpu_torch``) and dataset
 generation, on the CPU: the ``surrogate`` and ``supervised`` subcommands on
-tiny npz files print one finite JSON line (``supervised`` with the JAX
+tiny npz files log one finite JSON line (``supervised`` with the JAX
 CLI's keys, and without ``--device`` it refuses to run on the CPU; the
 subcommands of the unsupervised chain are in
-``test_torch_cli_unsupervised.py``);
+``test_torch_cli_unsupervised.py``); both packages' CLIs write that line
+to standard error and not to standard output;
 ``generate_data.run`` with noise off against the JAX package's (float64);
-configs and datasets move between the two packages."""
+configs, datasets and do-mpc pickles (``generate --export-pkl``) move
+between the two packages.
+
+The CLI logs its line through the package logger, whose stream handler
+holds the standard error of the moment it was made, so the tests read the
+line from the records that reach the root logger (``caplog``)."""
 
 import dataclasses
 import functools
 import json
 import math
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +30,7 @@ import torch
 from forging_control_tpu import cli as jcli
 from forging_control_tpu.pipelines import config as jconfig
 from forging_control_tpu.pipelines import generate_data as jgenerate_data
+from forging_control_tpu.utils import dompc_pickle as jdompc_pickle
 from forging_control_tpu_torch import cli
 from forging_control_tpu_torch.pipelines import config, generate_data
 from forging_control_tpu_torch.pipelines import surrogate
@@ -42,19 +53,28 @@ def _write_tiny(root):
     return sorted(paths)
 
 
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _logged(caplog) -> list:
+    """The JSON lines the port's CLI logged, in order."""
+    return [json.loads(r.getMessage()) for r in caplog.records
+            if r.name == "forging_control_tpu_torch"]
+
+
 def _finite(rec):
     return all(math.isfinite(v) for part in rec.values() for v in part.values())
 
 
-def test_torch_cli_surrogate_prints_one_json_line(tmp_path, capsys):
+def test_torch_cli_surrogate_prints_one_json_line(tmp_path, caplog):
     paths = _write_tiny(tmp_path)
     assert paths[0].endswith("N_10.npz")
     ck = str(tmp_path / "ck.npz")
     cli.main(["surrogate", "--data", str(tmp_path / "*.npz"), "--epochs", "1",
               "--device", "cpu", "--save", ck])
-    lines = capsys.readouterr().out.strip().splitlines()
+    lines = _logged(caplog)
     assert len(lines) == 1
-    rec = json.loads(lines[0])
+    rec = lines[0]
     assert set(rec) == {"test", "closed_loop"} and _finite(rec)
     # The files went in sorted(glob) order, and the first is the shadow's.
     results = [generate_data.load(p) for p in paths]
@@ -69,27 +89,77 @@ def test_torch_cli_surrogate_prints_one_json_line(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["unsupervised", "--data", "x.npz", "--train-mode", "imitation"],
-    ["generate", "--export-pkl"],
     ["supervised", "--data", "x.npz", "--train-mode", "plant"],
 ])
 def test_torch_cli_refuses_what_is_not_ported(argv, capsys):
-    """``--export-pkl`` waits for utils/dompc_pickle; the train modes each
-    subcommand does not have are refused as in the JAX CLI."""
+    """The train modes each subcommand does not have are refused as in the
+    JAX CLI."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--device", "cpu"])
     assert e.value.code != 0
 
 
-def test_torch_cli_generate_writes_a_dataset(tmp_path, capsys):
+def test_torch_cli_generate_writes_a_dataset(tmp_path, caplog):
     cli.main(["generate", "--n-traj", "1", "--t-traj", "2", "--horizon", "5",
               "--backend", "sqp", "--device", "cpu", "--out", str(tmp_path)])
-    rec = json.loads(capsys.readouterr().out.strip())
+    rec, = _logged(caplog)
     assert rec["dataset"] == generate_data.dataset_path(str(tmp_path), 5)
     assert rec["solves"] == 2 and math.isfinite(rec["MAE"])
+    assert "dataset_pkl" not in rec
     loaded = jgenerate_data.load(rec["dataset"])   # the JAX package reads it
     assert loaded["u"].shape == (1, 2) and loaded["w"].shape == (1, 2, 5)
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        generate_data.load(rec["dataset"][:-4] + ".pkl")
+    # A do-mpc pickle that the JAX package writes loads in the port.
+    pkl = str(tmp_path / "from_jax.pkl")
+    jdompc_pickle.save(pkl, loaded)
+    for k, v in generate_data.load(pkl).items():
+        np.testing.assert_array_equal(v, np.asarray(loaded[k], np.float64))
+
+
+def test_torch_cli_generate_exports_a_pickle(tmp_path, caplog):
+    """``generate --export-pkl`` writes ``<dataset>.pkl`` beside the npz and
+    names it in the record, as the JAX CLI does; the JAX package's loader
+    reads it back to the saved dataset."""
+    cli.main(["generate", "--n-traj", "2", "--t-traj", "2", "--horizon", "5",
+              "--backend", "sqp", "--export-pkl", "--device", "cpu", "--out",
+              str(tmp_path)])
+    rec, = _logged(caplog)
+    assert rec["dataset_pkl"] == rec["dataset"][:-4] + ".pkl"
+    saved = generate_data.load(rec["dataset"])
+    recs = jdompc_pickle.load(rec["dataset_pkl"])
+    assert set(recs) == {"mpc", "simulator"}
+    back = jdompc_pickle.to_results(recs["mpc"])
+    assert set(back) == {"y", "y_dot", "p1", "p2", "z", "ref", "u", "F_d"}
+    for k, v in back.items():
+        assert v.shape == (2, 2), k
+        np.testing.assert_array_equal(v, np.asarray(saved[k], np.float64))
+    assert jgenerate_data.load(rec["dataset_pkl"]).keys() == back.keys()
+
+
+def _run_cli(package, argv, cwd):
+    env = dict(os.environ, FCT_CPU="1", PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "")
+                       .split(os.pathsep) if p]))
+    return subprocess.run([sys.executable, "-m", package] + argv, cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("package", ["forging_control_tpu",
+                                     "forging_control_tpu_torch"])
+def test_torch_cli_result_line_goes_to_stderr(package, tmp_path):
+    """Both packages' CLIs, each in a process of its own, write their JSON
+    result line to standard error and nothing of it to standard output."""
+    data = _write_supervised(tmp_path)
+    argv = ["supervised", "--data", data, "--no-training", "--no-eval",
+            "--out", str(tmp_path / "out")]
+    if package.endswith("_torch"):
+        argv += ["--device", "cpu"]
+    out = _run_cli(package, argv, tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = [l for l in out.stderr.splitlines() if l.startswith("{")]
+    assert len(lines) == 1
+    assert list(json.loads(lines[-1])) == ["test", "mpc", "nn"]
+    assert '"test"' not in out.stdout
 
 
 def test_torch_generate_data_matches_jax():
@@ -158,7 +228,7 @@ def _numbers_finite(part):
 
 @pytest.mark.parametrize("feasibility", [False, True])
 def test_torch_cli_supervised_prints_one_json_line(feasibility, tmp_path,
-                                                   capsys, monkeypatch):
+                                                   caplog, monkeypatch):
     """The whole chain at horizon 5 on one evaluation trajectory of 3 steps
     (the config's t_traj and n_traj_eval cut in the test), 2 epochs, with
     the latency rows: one finite JSON line with the JAX CLI's keys, the
@@ -171,9 +241,9 @@ def test_torch_cli_supervised_prints_one_json_line(feasibility, tmp_path,
     cli.main(["supervised", "--data", data, "--epochs", "2", "--horizon", "5",
               "--device", "cpu", "--out", str(out)]
              + (["--feasibility"] if feasibility else []))
-    lines = capsys.readouterr().out.strip().splitlines()
+    lines = _logged(caplog)
     assert len(lines) == 1
-    rec = json.loads(lines[0])
+    rec = lines[0]
     assert list(rec) == ["test", "mpc", "nn"]
     assert all(_numbers_finite(part) for part in rec.values())
     assert rec["mpc"]["Time_impl"] == "native_cpp_sqp"
@@ -182,7 +252,7 @@ def test_torch_cli_supervised_prints_one_json_line(feasibility, tmp_path,
     assert (out / "Tables" / sub / "NN_results_N_5.csv").exists()
 
 
-def test_torch_cli_supervised_keys_match_jax(tmp_path, capsys, monkeypatch):
+def test_torch_cli_supervised_keys_match_jax(tmp_path, caplog, monkeypatch):
     """--no-eval: the JAX CLI and the port's print the same keys, and the
     same test metrics from the same data (the initial weights differ: each
     package draws its own)."""
@@ -194,7 +264,7 @@ def test_torch_cli_supervised_keys_match_jax(tmp_path, capsys, monkeypatch):
     want = json.loads(seen[-1])
     cli.main(["supervised", "--data", data, "--epochs", "1", "--no-eval",
               "--device", "cpu", "--out", str(tmp_path / "p")])
-    got = json.loads(capsys.readouterr().out.strip())
+    got, = _logged(caplog)
     assert list(got) == list(want) == ["test", "mpc", "nn"]
     assert got["mpc"] is None and got["nn"] is None
     assert list(got["test"]) == list(want["test"])

@@ -1,10 +1,9 @@
 """The port's CLI on the CPU, the unsupervised chain's subcommands: on tiny
 npz files ``unsupervised`` (all three train modes), ``supervised
---train-mode dagger`` and ``sweep`` print one finite JSON line each, with
+--train-mode dagger`` and ``sweep`` log one finite JSON line each, with
 the JAX CLI's keys, and ``--plots`` writes the dashboards and PNGs."""
 
 import functools
-import json
 import math
 import os
 
@@ -14,7 +13,7 @@ import pytest
 from forging_control_tpu_torch import cli
 from forging_control_tpu_torch.pipelines import config, generate_data
 from forging_control_tpu_torch.utils import checkpoint
-from test_torch_cli import _numbers_finite, _write_supervised
+from test_torch_cli import _logged, _numbers_finite, _write_supervised
 
 
 def _write_unsupervised(root):
@@ -32,7 +31,7 @@ def _write_unsupervised(root):
 
 
 @pytest.mark.parametrize("mode", ["surrogate", "plant", "dagger"])
-def test_torch_cli_unsupervised_prints_one_json_line(mode, tmp_path, capsys,
+def test_torch_cli_unsupervised_prints_one_json_line(mode, tmp_path, caplog,
                                                      monkeypatch):
     """Horizon 3, lookback 10, 1 surrogate epoch, the chain's loops cut to
     14 steps and its stages to one or two steps (the config and run cut in
@@ -51,9 +50,9 @@ def test_torch_cli_unsupervised_prints_one_json_line(mode, tmp_path, capsys,
     cli.main(["unsupervised", "--data", data, "--epochs", "1", "--horizon",
               "3", "--surrogate-epochs", "1", "--train-mode", mode,
               "--device", "cpu", "--out", str(out)] + plots)
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1
-    rec = json.loads(lines[0])
+    lines = _logged(caplog)
+    assert len(lines) == 1 + bool(plots)
+    rec = lines[0]
     assert list(rec) == ["test", "nn", "surrogate_drift"]
     assert all(_numbers_finite(part) for part in rec.values())
     assert (out / "Unsupervised" / "Tables" / "Normal" /
@@ -69,7 +68,7 @@ def test_torch_cli_unsupervised_prints_one_json_line(mode, tmp_path, capsys,
 
 
 def test_torch_cli_supervised_dagger_prints_one_json_line(
-        tmp_path, capsys, monkeypatch):
+        tmp_path, caplog, monkeypatch):
     """--train-mode dagger at horizon 5: 2 rounds of 1 epoch, one
     relabelling of 1 stream x 2 steps, evaluation of 2 steps."""
     data = _write_supervised(tmp_path)
@@ -79,27 +78,26 @@ def test_torch_cli_supervised_dagger_prints_one_json_line(
         dagger_epochs=1))
     cli.main(["supervised", "--data", data, "--horizon", "5", "--train-mode",
               "dagger", "--device", "cpu", "--out", str(tmp_path / "out")])
-    lines = capsys.readouterr().out.strip().splitlines()
+    lines = _logged(caplog)
     assert len(lines) == 1
-    rec = json.loads(lines[0])
+    rec = lines[0]
     assert list(rec) == ["test", "mpc", "nn"]
     assert all(_numbers_finite(part) for part in rec.values())
 
 
-def test_torch_cli_sweep_and_generate_plots(tmp_path, capsys):
-    """sweep writes one dataset per horizon and prints a line for each;
+def test_torch_cli_sweep_and_generate_plots(tmp_path, caplog):
+    """sweep writes one dataset per horizon and logs a line for each;
     generate --plots writes the MPC dashboards (with the solver trace)."""
     cli.main(["sweep", "--horizons", "5", "6", "--n-traj", "1", "--t-traj",
               "2", "--device", "cpu", "--out", str(tmp_path)])
-    recs = [json.loads(l) for l in
-            capsys.readouterr().out.strip().splitlines()]
+    recs = _logged(caplog)
     assert [r["dataset"] for r in recs] == [
         generate_data.dataset_path(str(tmp_path), h) for h in (5, 6)]
     assert all(math.isfinite(r["MAE"]) for r in recs)
     cli.main(["generate", "--n-traj", "1", "--t-traj", "2", "--horizon", "5",
               "--trace", "--plots", "--device", "cpu", "--out",
               str(tmp_path / "g")])
-    captured = capsys.readouterr()
-    assert len(captured.out.strip().splitlines()) == 1
-    paths = json.loads(captured.err.strip().splitlines()[-1])["dashboards"]
+    lines = _logged(caplog)[len(recs):]
+    assert len(lines) == 2 and "dataset" in lines[0]
+    paths = lines[1]["dashboards"]
     assert len(paths) == 4 and all(os.path.getsize(p) > 1000 for p in paths)

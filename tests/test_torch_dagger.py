@@ -7,10 +7,10 @@ tables and reference streams, 1e-8; and ``pipelines.supervised.run`` with
 
 Both packages' ``train_dagger`` roll out in float32 (the
 ``dagger_rollout`` default); the test patches both rollouts to float64.
-The JAX package's full-density imitation set is float32 whatever the
-run's dtype; the port's follows the dtype, so its float64 run is held
-against the JAX package's with that module's ``np`` replaced by a NumPy
-whose ``float32`` is ``float64``, in the test only."""
+Both packages round the full-density imitation set through float32
+whatever the run's dtype; the float64 runs are held against each other
+with both pipeline modules' ``np`` replaced by a NumPy whose ``float32`` is
+``float64``, in the test only."""
 
 import functools
 
@@ -29,7 +29,8 @@ from forging_control_tpu.refgen import streams as jstreams
 from forging_control_tpu.solver import sqp as jsqp
 from forging_control_tpu_torch import interop
 from forging_control_tpu_torch.nn import scalers, train
-from forging_control_tpu_torch.pipelines import config, supervised
+from forging_control_tpu_torch.pipelines import (config, supervised,
+                                                 unsupervised)
 from forging_control_tpu_torch.solver import sqp
 
 PROCESS_STD = (5e-1, 2e0, 5e7, 5e7, 2e0)
@@ -170,6 +171,7 @@ def test_torch_supervised_dagger_run_matches_jax(monkeypatch):
     monkeypatch.setattr(train, "dagger_rollout", functools.partial(
         train.dagger_rollout, dtype=torch.float64))
     monkeypatch.setattr(junsupervised, "np", _Float64Numpy())
+    monkeypatch.setattr(unsupervised, "np", _Float64Numpy())
     want = jsupervised.run(results, jconfig.SupervisedConfig(**kw), seed=0,
                            closed_loop_eval=False, dtype=jnp.float64)
     init, _ = jfnn.init(jax.random.PRNGKey(0), dtype=jnp.float64)

@@ -28,8 +28,13 @@ from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
 from forging_control_tpu_torch.pipelines import (config, generate_data,
                                                  supervised, surrogate,
                                                  unsupervised)
+from forging_control_tpu_torch.parallel import launcher, mesh
 from forging_control_tpu_torch.solver import feasibility
-from forging_control_tpu_torch.utils import checkpoint
+from forging_control_tpu_torch.utils import (checkpoint, dompc_pickle,
+                                             logging, notify, profiling,
+                                             progress, timer)
+import forging_control_tpu_torch.parallel
+import forging_control_tpu_torch.utils
 import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m == "forging_control_tpu"

@@ -3,9 +3,10 @@ scalers, windows and splits, metrics, teacher-forced and free-running
 rollouts, the training loop (with the JAX package's own batch tables and
 initial weights) and the surrogate pipeline.
 
-The JAX pipeline always casts its windows to float32; to hold the port's
-float64 run against it, the JAX pipeline module's ``np`` is replaced, in
-the test only, by a NumPy whose ``float32`` is ``float64``.
+Both pipelines round their windows through float32 whatever the dtype
+(``test_torch_float64_parity.py`` holds them unpatched); here both pipeline
+modules' ``np`` is replaced, in the test only, by a NumPy whose ``float32``
+is ``float64``, so that the float64 runs compare at float64's tolerance.
 """
 
 import numpy as np
@@ -236,6 +237,7 @@ def test_torch_surrogate_pipeline_matches_jax(training, monkeypatch):
         hidden_dim=8, num_layers=2, epochs=2, batch_size=32,
         flags=jconfig.Flags(enable_training=training))
     monkeypatch.setattr(jsurrogate, "np", _Float64Numpy())
+    monkeypatch.setattr(surrogate, "np", _Float64Numpy())
     want = jsurrogate.run(results, jcfg, seed=0, eval_results=results[0],
                           dtype=jnp.float64)
 

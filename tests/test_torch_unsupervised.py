@@ -8,11 +8,12 @@ returned controller, the test and closed-loop metrics and the surrogate's
 drift agree within 1e-8, and the checkpoint it writes loads in both
 packages with the same meta.
 
-The JAX pipeline casts its windows and imitation pairs to float32 whatever
-its dtype, and its DAgger rolls out in float32; the port follows the run's
-dtype.  The float64 runs are held against each other with, in the test
-only, the JAX pipeline module's ``np`` replaced by a NumPy whose
-``float32`` is ``float64`` and both packages' DAgger rollouts in float64."""
+Both pipelines round their windows and imitation pairs through float32
+whatever the dtype, and both DAgger rollouts run in float32
+(``test_torch_float64_parity.py`` holds them unpatched).  Here the float64
+runs are held against each other with, in the test only, both pipeline
+modules' ``np`` replaced by a NumPy whose ``float32`` is ``float64`` and
+both packages' DAgger rollouts in float64."""
 
 import functools
 import json
@@ -124,6 +125,7 @@ def check_mode(mode, tmp_path, monkeypatch):
     results = _dataset()
     jparams, jsc, model, sc = _surrogate(results)
     monkeypatch.setattr(junsupervised, "np", _Float64Numpy())
+    monkeypatch.setattr(unsupervised, "np", _Float64Numpy())
     monkeypatch.setattr(jtrain, "dagger_rollout", functools.partial(
         jtrain.dagger_rollout, dtype=jnp.float64))
     monkeypatch.setattr(train, "dagger_rollout", functools.partial(
