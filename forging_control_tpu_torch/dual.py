@@ -182,8 +182,22 @@ def abs(a):  # noqa: A001 - mirrors jnp.abs
 
 
 def _as_tensor(b, like):
-    return b if isinstance(b, torch.Tensor) else torch.as_tensor(
-        b, dtype=like.dtype, device=like.device)
+    """``b``, or the Python number ``b`` as a 0-d tensor of ``like``'s dtype
+    and device, made by a fill op: never a copy from host memory, which
+    would wait on the stream and cannot be captured in a CUDA graph."""
+    return b if isinstance(b, torch.Tensor) else torch.full(
+        (), b, dtype=like.dtype, device=like.device)
+
+
+def constants(values, dtype, device) -> torch.Tensor:
+    """A 1-D tensor of the Python numbers ``values``, made by one fill op
+    each on ``device`` (with ``torch.tensor``'s values: each number rounded
+    to ``dtype``), so that a control period holds no copy from host
+    memory."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def _extremum(a, b, op):
@@ -246,16 +260,12 @@ def clip(a, lo, hi):
 
 
 def where(cond, a, b):
+    """``jnp.where``; a Python number on one side goes to ``torch.where``
+    as a scalar (one side must be a tensor or a dual)."""
     if not isinstance(a, Dual) and not isinstance(b, Dual):
-        pa, pb = a, b
-        if not isinstance(pa, torch.Tensor):
-            pa = _as_tensor(pa, pb)
-        if not isinstance(pb, torch.Tensor):
-            pb = _as_tensor(pb, pa)
-        return torch.where(cond, pa, pb)
+        return torch.where(cond, a, b)
     pa, pb = _primal(a), _primal(b)
-    like = pa if isinstance(pa, torch.Tensor) else pb
-    p = torch.where(cond, _as_tensor(pa, like), _as_tensor(pb, like))
+    p = torch.where(cond, pa, pb)
     n = _n_dir(a, b)
     t = torch.where(_e(cond), _tangent(a, p.shape, n, p),
                     _tangent(b, p.shape, n, p))

@@ -5,7 +5,9 @@ closed_loop.py`` (``_run_batch_fused``): per control period, the controller
 solves for the whole batch, the plant takes one RK4 step of ``press.rhs``
 with additive process noise, and the telemetry records the measured state,
 command, reference, forging force, noise and solver diagnostics.  The
-``lax.scan`` over time is a Python loop here.
+``lax.scan`` over time is a Python loop here; on a card each of its periods
+after the first is one replay of a CUDA graph of the period (:mod:`.graph`),
+the counterpart of the scan body that XLA compiles once.
 
 Every controller steps the whole batch (``step_batch``); the port has no
 per-scenario vmap path.  Noise comes from an explicit ``torch.Generator``,
@@ -14,7 +16,8 @@ cannot be reproduced in torch, so parity runs feed the JAX run's recorded
 ``Telemetry.w``).
 
 The single-stream side (``closed_loop.py:288-505`` of the JAX package):
-:func:`make_stepper` (one control period per call at B = 1),
+:func:`make_stepper` (one control period per call at B = 1; on a card one
+graph replay with a donated carry),
 :func:`stepper_latency` and :func:`controller_latency_metrics` (per-step
 wall-clock latencies in the reference's table columns), and
 :func:`native_mpc_latency` (the native C++ GN-SQP of ``runtime/`` timed
@@ -23,7 +26,9 @@ step by step against the port's float64 RK4 plant on the CPU).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import time
 from typing import Callable, NamedTuple
 
@@ -35,6 +40,7 @@ from ..device import resolve_device
 from ..integrate.rk4 import rk4_step
 from ..physics import press
 from ..solver import riccati, sqp
+from . import graph as graph_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +148,7 @@ def _noise(std, given, t, generator, B, dtype, device, what):
                          f"or pre-drawn noise")
     z = torch.randn(B, 5, generator=generator, dtype=dtype,
                     device=generator.device)
-    return z.to(device) * torch.as_tensor(std, dtype=dtype, device=device)
+    return z.to(device) * ad.constants(std, dtype, device)
 
 
 def _plant_step(loop_cfg: LoopConfig, x_true, u, w, v):
@@ -155,17 +161,80 @@ def _plant_step(loop_cfg: LoopConfig, x_true, u, w, v):
     x_next = rk4_step(f, x_true, u, loop_cfg.dt, loop_cfg.substeps,
                       disturbance=w)
     if loop_cfg.state_clip is not None:
-        lim = torch.as_tensor(loop_cfg.state_clip, dtype=x_next.dtype,
-                              device=x_next.device)
+        lim = ad.constants(loop_cfg.state_clip, x_next.dtype, x_next.device)
         x_next = ad.clip(torch.nan_to_num(x_next), -lim, lim)
     return x_next, press.measure(x_next, loop_cfg.params,
                                  loop_cfg.variant) + v
 
 
+class StepperCarry(NamedTuple):
+    """State of a single-stream stepper between calls (B = 1), and of
+    :func:`run_batch`'s loop."""
+
+    x_true: torch.Tensor      # (B, 5)
+    x_meas: torch.Tensor      # (B, 5)
+    ctrl: object              # the controller's carry
+    u_prev: torch.Tensor      # (B,)
+
+
+def _step(loop_cfg: LoopConfig, controller, carry, ref, w, v):
+    """One control period from ``carry`` (a :class:`StepperCarry`): the
+    controller's ``step_batch``, then :func:`_plant_step`.  Returns (the
+    next carry, the solver diagnostics)."""
+    u0, ctrl, diag = controller.step_batch(carry.ctrl, carry.x_meas, ref,
+                                           carry.u_prev)
+    u0 = u0.to(carry.x_true.dtype)
+    x_next, x_meas = _plant_step(loop_cfg, carry.x_true, u0, w, v)
+    return StepperCarry(x_next, x_meas, ctrl, u0), diag
+
+
+def _period(loop_cfg: LoopConfig, controller, carry, inputs):
+    """One iteration of :func:`run_batch`'s loop, the body that a CUDA
+    graph captures: the forging force at the measured state, then
+    :func:`_step`.  ``inputs`` = (ref (B,), w (B, 5), v (B, 5)).  Returns
+    (the next carry, (x_meas, u, Fd, diag))."""
+    ref, w, v = inputs
+    Fd = press.forging_force(carry.x_meas[:, 0], carry.x_meas[:, 1],
+                             loop_cfg.params)
+    carry, diag = _step(loop_cfg, controller, carry, ref, w, v)
+    return carry, (carry.x_meas, carry.u_prev, Fd, diag)
+
+
+# Captured periods of run_batch, as jit caches its programs: keyed by
+# (controller, loop config without t_steps, B, dtype, device), at most
+# GRAPH_CACHE_SIZE of them, the least recently used dropped first (its
+# graph and private memory pool freed).  A graph's pool is one period's
+# intermediates: 62-94 MB for the SQP period at B = 4,096 on an H100
+# (PERF.md section 5), so the cache holds well under a gigabyte there.
+GRAPH_CACHE_SIZE = 4
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+def cached_period(loop_cfg: LoopConfig, controller, n_batch: int, dtype,
+                  device) -> graph_mod.Period | None:
+    """The captured period that :func:`run_batch` keeps for these, if any
+    (its ``stats`` say what capturing it cost)."""
+    key = _graph_key(loop_cfg, controller, n_batch, dtype, device)
+    return None if key is None else _GRAPHS.get(key)
+
+
+def _graph_key(loop_cfg, controller, n_batch, dtype, device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (controller, dataclasses.replace(loop_cfg, t_steps=0), n_batch,
+           dtype, device)
+    try:
+        hash(key)
+    except TypeError:          # a controller that is not hashable
+        return None
+    return key
+
+
 def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
               generator: torch.Generator | None = None, *,
               process_noise=None, meas_noise=None, u_init: float = 0.0,
-              device="cuda"):
+              device="cuda", graph: bool | None = None):
     """Scenario-batched closed loop over ``loop_cfg.t_steps`` periods.
 
     Step semantics (``Generate Data/Functions.py:332-372``):
@@ -184,10 +253,25 @@ def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
         ``Telemetry.w`` records ``process_noise``.
       device: where the loop runs; ``"cuda"`` unless the caller asks for
         the CPU.
+      graph: on a card, each period is one replay of a CUDA graph of
+        :func:`_period` (:mod:`.graph`): the first period runs eagerly and
+        the body is captured from its state, or a graph cached for this
+        controller, loop config, B, dtype and device replays every period.
+        Per period, outside the graph, the reference is copied in and the
+        noise drawn from ``generator`` in the eager loop's order (or the
+        pre-drawn slices copied in), so the telemetry equals the eager
+        loop's.  None (the default) captures when the device is CUDA and
+        autograd does not record through the period (plant-in-loop
+        training backpropagates through this loop, which then stays
+        eager); False runs every period eagerly, the path that the
+        replay is held against; True captures or raises.  A capture or
+        replay failure raises: nothing falls back to the eager loop.
 
     Returns (final true state (B, 5), Telemetry with (B, T, ...) leaves).
     """
     device = resolve_device(device)
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device, got {device}")
     x0 = torch.as_tensor(x0, device=device)
     dtype = x0.dtype
     refs = torch.as_tensor(refs, device=device).to(dtype)
@@ -197,44 +281,95 @@ def run_batch(loop_cfg: LoopConfig, controller, x0, refs,
     if meas_noise is not None:
         meas_noise = torch.as_tensor(meas_noise, device=device).to(dtype)
 
-    x_true = x0
-    x_meas = press.measure(x0, loop_cfg.params, loop_cfg.variant)
-    carry = controller.init_carry_batch(B, dtype, device)
-    u_prev = torch.full((B,), u_init, dtype=dtype, device=device)
-    rec = {k: [] for k in ("x", "u", "ref", "Fd", "w")}
-    diags = []
-    for t in range(T):
-        ref = refs[:, t]
-        Fd = press.forging_force(x_meas[:, 0], x_meas[:, 1], loop_cfg.params)
-        u0, carry, diag = controller.step_batch(carry, x_meas, ref, u_prev)
-        u0 = u0.to(dtype)
+    carry = StepperCarry(
+        x_true=x0,
+        x_meas=press.measure(x0, loop_cfg.params, loop_cfg.variant),
+        ctrl=controller.init_carry_batch(B, dtype, device),
+        u_prev=torch.full((B,), u_init, dtype=dtype, device=device))
+    ws = []
 
+    def inputs(t):
         w = _noise(loop_cfg.process_std, process_noise, t, generator, B,
                    dtype, device, "process")
         v = _noise(loop_cfg.meas_std, meas_noise, t, generator, B, dtype,
                    device, "measurement")
+        ws.append(w)
+        return refs[:, t], w, v
 
-        x_next, x_meas = _plant_step(loop_cfg, x_true, u0, w, v)
-        x_true, u_prev = x_next, u0
-        for k, val in zip(rec, (x_meas, u0, ref, Fd, w)):
-            rec[k].append(val)
-        diags.append(diag)
+    if device.type != "cuda":
+        graph = False
+    key = None if graph is False else _graph_key(loop_cfg, controller, B,
+                                                 dtype, device)
+    period = None if key is None else _GRAPHS.get(key)
+    if period is not None:
+        _GRAPHS.move_to_end(key)
+    carry, outs, captured = graph_mod.run(
+        functools.partial(_period, loop_cfg, controller), carry, inputs, T,
+        graph=graph, period=period)
+    if captured is not None and captured is not period and key is not None:
+        _GRAPHS[key] = captured
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
 
     stack = lambda xs: torch.stack(xs, dim=1)  # noqa: E731
+    xs, us, Fds, diags = zip(*outs)
     diag = sqp.Diagnostics(*(
         None if vals[0] is None else stack(list(vals))
         for vals in zip(*diags)))
-    return x_true, Telemetry(**{k: stack(vals) for k, vals in rec.items()},
-                             diag=diag)
+    return carry.x_true, Telemetry(
+        x=stack(list(xs)), u=stack(list(us)),
+        ref=stack([refs[:, t] for t in range(T)]), Fd=stack(list(Fds)),
+        w=stack(ws), diag=diag)
 
 
-class StepperCarry(NamedTuple):
-    """State of a single-stream stepper between calls (batch axis of 1)."""
+class _GraphStepper:
+    """The card's stepper: one replay of a CUDA graph of :func:`_period`
+    at B = 1 per call.  The graph is the one :func:`run_batch` cached for
+    this controller and loop config at B = 1, which the stepper then takes
+    for its own; else the first call runs one period eagerly and captures
+    the graph from the state it left.  A call writes the reference (and
+    any given noise) into the static inputs and replays once.  The carry it
+    returns holds the static buffers themselves, as a donated JAX carry
+    does: the next call overwrites them, so a carry that an earlier call
+    consumed raises."""
 
-    x_true: torch.Tensor      # (1, 5)
-    x_meas: torch.Tensor      # (1, 5)
-    ctrl: object              # the controller's carry at B = 1
-    u_prev: torch.Tensor      # (1,)
+    def __init__(self, loop_cfg, controller, carry0, noise, dtype, device):
+        self.loop_cfg, self.noise = loop_cfg, noise
+        self.dtype, self.device = dtype, device
+        self.body = functools.partial(_period, loop_cfg, controller)
+        self.live = carry0
+        key = _graph_key(loop_cfg, controller, 1, dtype, device)
+        self.period = None if key is None else _GRAPHS.pop(key, None)
+        if self.period is not None:
+            graph_mod.copy_into(self.period.state, carry0)
+
+    def __call__(self, carry, ref, process_noise=None, meas_noise=None):
+        if carry is not self.live:
+            raise RuntimeError(
+                "this stepper carry was consumed by an earlier step (the "
+                "card's stepper donates it: its buffers now hold a later "
+                "state); pass the carry that the last step returned")
+        w = self.noise(self.loop_cfg.process_std, process_noise, "process")
+        v = self.noise(self.loop_cfg.meas_std, meas_noise, "measurement")
+        if self.period is None:
+            ref = torch.as_tensor(ref, device=self.device).to(
+                self.dtype).reshape(1)
+            state, inputs = graph_mod.tree_map(
+                lambda a: a.contiguous(), (carry, (ref, w, v)))
+            state, (_, u, _, _) = self.body(state, inputs)
+            self.period = graph_mod.Period(self.body, state, inputs)
+            self.period.capture()
+        else:
+            static_ref, static_w, static_v = self.period.inputs
+            if isinstance(ref, torch.Tensor):
+                static_ref.copy_(ref.reshape(1))
+            else:
+                static_ref.fill_(float(ref))
+            static_w.copy_(w)
+            static_v.copy_(v)
+            u = self.period()[1].clone()
+        self.live = StepperCarry(*self.period.state)
+        return self.live, u[0]
 
 
 def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
@@ -246,7 +381,10 @@ def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
     ``simulator.make_step``, ``Generate Data/Functions.py:335-349``): the
     controller's ``step_batch`` at B = 1, then one plant period, exactly one
     iteration of :func:`run_batch`'s loop.  The carry stays on ``device``
-    between calls.
+    between calls.  On a card the period is a CUDA graph replayed once per
+    call, and the carry is donated (:class:`_GraphStepper`), the
+    counterpart of the JAX package's ahead-of-time stepper with
+    ``donate_argnums=0``; on the CPU every call runs the period eagerly.
 
     Returns ``(step, carry0)``; ``step(carry, ref, process_noise=None,
     meas_noise=None) -> (carry, u)`` with u a 0-d tensor on ``device``.
@@ -268,15 +406,16 @@ def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
                 1, 5)
         return _noise(std, None, 0, generator, 1, dtype, device, what)
 
+    if device.type == "cuda":
+        return _GraphStepper(loop_cfg, controller, carry0, noise, dtype,
+                             device), carry0
+
     def step(carry: StepperCarry, ref, process_noise=None, meas_noise=None):
         ref = torch.as_tensor(ref, device=device).to(dtype).reshape(1)
-        u0, ctrl, _ = controller.step_batch(carry.ctrl, carry.x_meas, ref,
-                                            carry.u_prev)
-        u0 = u0.to(dtype)
         w = noise(loop_cfg.process_std, process_noise, "process")
         v = noise(loop_cfg.meas_std, meas_noise, "measurement")
-        x_next, x_meas = _plant_step(loop_cfg, carry.x_true, u0, w, v)
-        return StepperCarry(x_next, x_meas, ctrl, u0), u0[0]
+        carry, _ = _step(loop_cfg, controller, carry, ref, w, v)
+        return carry, carry.u_prev[0]
 
     return step, carry0
 
@@ -290,10 +429,13 @@ def stepper_latency(loop_cfg: LoopConfig, controller, refs, *,
     Each step is timed by ``perf_counter`` around the call and the read of
     the command to the host (``float(u)``, which waits for the device), the
     reference's ``do_mpc.tools.Timer`` semantics around ``make_step``
-    (``Generate Data/Functions.py:335-337``).  The first step is the warm-up
-    and is excluded, so the result has ``len(refs) - 1`` entries and the
-    trajectory follows ``refs`` once.  Configured noise is drawn from
-    ``generator``, by default one seeded with 0.
+    (``Generate Data/Functions.py:335-337``); on a card a step is the
+    writes of its inputs and one graph replay.  The first step is the
+    warm-up (on a card, the eager period and the capture, unless
+    :func:`run_batch` left a graph at B = 1) and is excluded, so the result
+    has ``len(refs) - 1`` entries and the trajectory follows ``refs`` once.
+    Configured noise is drawn from ``generator``, by default one seeded
+    with 0.
     """
     device = resolve_device(device)
     if generator is None:
@@ -326,9 +468,9 @@ def controller_latency_metrics(loop_cfg: LoopConfig, controller, refs, *,
     rows.  When ``device`` is a card, the mean of the same stepper there is
     added under the JAX package's key ``Tunnel_time``, so the tables keep
     their schema.  On an H100 that key holds the card stepper's per-step
-    time: the eager launch of every op of one control period from the
-    host and the read of the command back, not a transport to a remote
-    device as on the JAX package's TPU host.
+    time: one replay of the period's CUDA graph and the read of the command
+    back, the counterpart of the JAX package's ahead-of-time stepper, not a
+    transport to a remote device as on the JAX package's TPU host.
     """
     from ..eval import metrics
 

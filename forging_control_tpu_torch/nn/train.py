@@ -498,15 +498,18 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     the student visits, but its command is not applied (``beta=0``; beta > 0
     blends it into the applied command).  The loop runs in ``dtype`` on the
     device of ``params``; on a card every damped normal solve of the SQP
-    teacher is a launch of kernel B1, ``gn_iters x al_iters`` per step.  Process noise: ``process_noise``
-    (B, T, 5, already scaled), else drawn from ``generator`` when
-    ``process_std`` is nonzero.
+    teacher is a launch of kernel B1, ``gn_iters x al_iters`` per step, and
+    every step after the first is one replay of a CUDA graph of the step
+    (``loop.graph``).  Process noise: ``process_noise`` (B, T, 5, already
+    scaled), else drawn from ``generator`` when ``process_std`` is
+    nonzero.
 
     Returns ``(feats (B, T, 3), u_teacher (B, T))`` in raw physical units
     (features [y_dot, z, ref], the supervised controller inputs).
     """
     from ..integrate.rk4 import rk4_step
     from ..loop import closed_loop as cl
+    from ..loop import graph
 
     device = params["w_in"].device
     refs = torch.as_tensor(refs).to(device, dtype)
@@ -524,24 +527,29 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     def measure(x):
         return cl.press.measure(x, loop_cfg.params, loop_cfg.variant)
 
-    x_true = torch.tensor(cl.press.X0_REFERENCE, dtype=dtype,
-                          device=device).repeat(B, 1)
-    x_meas = measure(x_true)
-    carry = teacher.init_carry_batch(B, dtype, device)
-    u_prev = torch.zeros(B, dtype=dtype, device=device)
-    feats, labels = [], []
-    for t in range(T):
-        ref = refs[:, t]
+    def period(state, inputs):
+        x_true, x_meas, u_prev, carry = state
+        ref, w = inputs
         u_teach, carry, _ = teacher.step_batch(carry, x_meas, ref, u_prev)
         u_stud = policy(x_meas, ref, u_prev).to(dtype)
         u0 = (1.0 - beta) * u_stud + beta * u_teach.to(dtype)
-        w = cl._noise(loop_cfg.process_std, process_noise, t, generator, B,
-                      dtype, device, "process")
         x_next = rk4_step(f, x_true, u0, loop_cfg.dt, loop_cfg.substeps,
                           disturbance=w)
-        feats.append(torch.stack([x_meas[:, 1], x_meas[:, 4], ref], dim=-1))
-        labels.append(u_teach)
-        x_true, x_meas, u_prev = x_next, measure(x_next), u0
+        feats = torch.stack([x_meas[:, 1], x_meas[:, 4], ref], dim=-1)
+        return (x_next, measure(x_next), u0, carry), (feats, u_teach)
+
+    def inputs(t):
+        return refs[:, t], cl._noise(loop_cfg.process_std, process_noise, t,
+                                     generator, B, dtype, device, "process")
+
+    x_true = torch.tensor(cl.press.X0_REFERENCE, dtype=dtype,
+                          device=device).repeat(B, 1)
+    state = (x_true, measure(x_true), torch.zeros(B, dtype=dtype,
+                                                  device=device),
+             teacher.init_carry_batch(B, dtype, device))
+    _, outs, _ = graph.run(period, state, inputs, T,
+                           graph=None if device.type == "cuda" else False)
+    feats, labels = zip(*outs)
     return torch.stack(feats, dim=1), torch.stack(labels, dim=1)
 
 

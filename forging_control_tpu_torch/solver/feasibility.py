@@ -124,7 +124,7 @@ def _run(cfg: FeasibilityConfig, x0, u_nn, u, lam):
     """``al_iters`` AL rounds of ``iters`` GN steps from (u, lam); returns
     the final (u, lam)."""
     n = len(ALPHAS)
-    alphas = torch.tensor(ALPHAS, dtype=u.dtype, device=u.device)
+    alphas = ad.constants(ALPHAS, u.dtype, u.device)
     x0_c, u_nn_c = _expand(x0, n), _expand(u_nn, n)
     mu = float(cfg.mu0)
     for _ in range(cfg.al_iters):
@@ -162,8 +162,8 @@ def recover(cfg: FeasibilityConfig, u_nn, x0) -> FeasibilityResult:
     n, n_con = len(SEED_OFFSETS), 4 * cfg.lookahead
     lam0 = torch.zeros(u_nn.shape[0], n_con, dtype=u_nn.dtype,
                        device=u_nn.device)
-    seeds = u_nn[:, None] + torch.tensor(SEED_OFFSETS, dtype=u_nn.dtype,
-                                         device=u_nn.device)
+    seeds = u_nn[:, None] + ad.constants(SEED_OFFSETS, u_nn.dtype,
+                                         u_nn.device)
     r_s, _ = _al_residual(cfg, _expand(x0, n), _expand(u_nn, n), seeds,
                           _expand(lam0, n), float(cfg.mu0))
     u_init, _ = _pick(seeds, 0.5 * torch.sum(r_s ** 2, dim=-1))

@@ -101,9 +101,7 @@ def _terminal_res(cfg: MPCConfig, z, ref, lam_k, mu):
 def _res_mask(cfg: MPCConfig, dtype, device):
     """Stage-0 mask: only the du residual is live (no tracking/constraint
     terms at the fixed initial state)."""
-    m = torch.zeros(2 + _nc(cfg), dtype=dtype, device=device)
-    m[0] = 1.0
-    return m
+    return ad.constants([1.0] + [0.0] * (1 + _nc(cfg)), dtype, device)
 
 
 def _rollout_batch(cfg: MPCConfig, x0, u_prev_s, v):
@@ -146,7 +144,7 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
     ref = torch.as_tensor(ref, device=device).to(dtype).expand(B)
     u_prev_s = torch.as_tensor(u_prev, device=device).to(dtype).expand(B) \
         / U_SCALE
-    alphas = torch.tensor(_ALPHAS, dtype=dtype, device=device)
+    alphas = ad.constants(_ALPHAS, dtype, device)
     A_n = len(_ALPHAS)
     mask0 = _res_mask(cfg, dtype, device)
     nr = mask0.shape[0]
@@ -268,7 +266,7 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
 
     v, lam = state.v, state.lam
     zs, zN = _rollout_batch(cfg, x0, u_prev_s, v)
-    mu = torch.tensor(cfg.mu0, dtype=dtype, device=device)
+    mu = torch.full((), cfg.mu0, dtype=dtype, device=device)
     iters = torch.zeros(B, dtype=torch.int32, device=device)
     d_norm = torch.zeros(B, dtype=dtype, device=device)
     inf_du = torch.zeros(B, dtype=dtype, device=device)

@@ -285,10 +285,9 @@ def _gauss_newton(cfg: MPCConfig, x0, ref, u_prev_s, lam, mu, v):
 
 
 def _damping(cfg: MPCConfig, dtype, device):
-    """The three Levenberg dampings, made once per solve (a host-to-device
-    copy on a card)."""
-    return torch.tensor([cfg.lm_reg, cfg.lm_reg + 1e-2, cfg.lm_reg + 1.0],
-                        dtype=dtype, device=device)
+    """The three Levenberg dampings, made once per solve by fill ops."""
+    return ad.constants([cfg.lm_reg, cfg.lm_reg + 1e-2, cfg.lm_reg + 1.0],
+                        dtype, device)
 
 
 def _damped(H, g, regs):
@@ -316,7 +315,7 @@ def damped_systems(cfg: MPCConfig, x0, ref, u_prev, state: SolverState):
     its linear solve (the solve returns minus the steps)."""
     x0, ref, u_prev_s = _prepare(x0, ref, u_prev, state)
     dtype, device = state.v.dtype, state.v.device
-    mu = torch.tensor(cfg.mu0, dtype=dtype, device=device)
+    mu = torch.full((), cfg.mu0, dtype=dtype, device=device)
     _, g, H = _gauss_newton(cfg, x0, ref, u_prev_s, state.lam, mu, state.v)
     return _damped(H, g, _damping(cfg, dtype, device))
 
@@ -348,8 +347,7 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
 
     n_lad = len(cfg.step_ladder)
     n_cand = n_lad + 2
-    alphas = torch.tensor(list(cfg.step_ladder) + [1.0, 1.0], dtype=dtype,
-                          device=device)
+    alphas = ad.constants(list(cfg.step_ladder) + [1.0, 1.0], dtype, device)
     regs = _damping(cfg, dtype, device)
     bidx = torch.arange(B, device=device)
     # Candidate axis: the same scenario data for every step candidate.
@@ -358,7 +356,7 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
     up_c = u_prev_s[:, None].expand(B, n_cand)
 
     v, lam = state.v, state.lam
-    mu = torch.tensor(cfg.mu0, dtype=dtype, device=device)
+    mu = torch.full((), cfg.mu0, dtype=dtype, device=device)
     iters = torch.zeros(B, dtype=torch.int32, device=device)
     d_norm = torch.zeros(B, dtype=dtype, device=device)
     inf_du = torch.zeros(B, dtype=dtype, device=device)

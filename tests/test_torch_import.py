@@ -21,6 +21,7 @@ from forging_control_tpu_torch import bench, cli, dual, interop, runtime
 from forging_control_tpu_torch import __main__
 from forging_control_tpu_torch.eval import (html_dash, metrics, plots,
                                             report, wide_panel)
+from forging_control_tpu_torch.loop import closed_loop, graph
 from forging_control_tpu_torch.nn import (datasets, fnn, lstm, mpc_loss,
                                           scalers, surrogate_eval,
                                           torch_compat, train)
