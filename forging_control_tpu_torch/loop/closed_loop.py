@@ -151,6 +151,25 @@ def _noise(std, given, t, generator, B, dtype, device, what):
     return z.to(device) * ad.constants(std, dtype, device)
 
 
+def draw_noise(loop_cfg: LoopConfig, generator: torch.Generator, B: int,
+               dtype, device):
+    """The noise that :func:`run_batch` would draw from ``generator``,
+    drawn ahead: (process, measurement), each (B, T, 5) on ``device`` or
+    None where its std is zero.  Per period the process draw comes before
+    the measurement draw, as in the loop, so passing them to ``run_batch``
+    as ``process_noise`` and ``meas_noise`` gives its own draws bitwise."""
+    stds = (loop_cfg.process_std, loop_cfg.meas_std)
+    draws = ([], [])
+    for _ in range(loop_cfg.t_steps):
+        for out, std in zip(draws, stds):
+            if any(s != 0 for s in std):
+                out.append(torch.randn(B, 5, generator=generator, dtype=dtype,
+                                       device=generator.device))
+    return tuple(torch.stack(out, dim=1).to(device)
+                 * ad.constants(std, dtype, device) if out else None
+                 for out, std in zip(draws, stds))
+
+
 def _plant_step(loop_cfg: LoopConfig, x_true, u, w, v):
     """One control period of the plant: RK4 of f(x, u) + w from the true
     state (clamped if the config says so), then the measurement + v.

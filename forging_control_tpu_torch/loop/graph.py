@@ -33,6 +33,12 @@ Launch counts: the kernel wrappers count their launches as the body
 dispatches them.  A capture's counts are taken back, and each replay adds
 them again, so a counter reads the same after a captured run as after an
 eager one.
+
+A :class:`Step` is the same machinery for one training step, the
+counterpart of the JAX package's jitted training programs: forward,
+backward and optimizer update over static buffers of the parameters, the
+optimizer's state and the step's inputs, captured whole after a first,
+eager step.
 """
 
 from __future__ import annotations
@@ -55,12 +61,14 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def tree_map(fn, tree):
-    """``fn`` over the tensor leaves of nested tuples, lists and
+    """``fn`` over the tensor leaves of nested tuples, lists, dicts and
     NamedTuples (None leaves stay None)."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if tree is None:
         return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, t) for t in tree))
     if isinstance(tree, (tuple, list)):
@@ -187,6 +195,53 @@ class Period:
             "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
             "launches": {(k[0] + " " + k[1]) if isinstance(k, tuple)
                          else k.__name__: n for k, n in self._delta.items()}}
+
+
+def resolve(graph: bool | None, device) -> bool:
+    """Whether a run on ``device`` captures: ``None`` on a card only,
+    ``True`` always (and then it needs a card), ``False`` never."""
+    device = torch.device(device)
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device, got {device}")
+    return device.type == "cuda" if graph is None else bool(graph)
+
+
+class Step(Period):
+    """One training step, ``body(state, inputs) -> (new_state, outputs)``:
+    ``state`` holds the parameters and the optimizer's state, ``inputs``
+    the step's batch (an index row, noise or reference draws), ``outputs``
+    the loss.  The body takes its gradients with ``torch.autograd.grad``
+    from the parameters it is given (so no ``.grad`` accumulates across
+    replays) and computes the new state without autograd.
+
+    ``graph=False`` (the eager reference): every call runs the body on the
+    current ``state``, which the new state then replaces; nothing is
+    copied.  ``graph=True``: the state and the inputs live in static
+    buffers (the inputs' made at the first call); the first call runs the
+    body eagerly on the buffers (a real step, and the capture's warm-up)
+    and then captures it; every later call copies its inputs in and
+    replays.  Either way ``state`` is the current state: read it, or copy a
+    snapshot into it (:func:`copy_into`) to rewind.  The outputs are
+    tensors of their own.
+    """
+
+    def __init__(self, body, state, *, graph: bool):
+        super().__init__(body, state, None)
+        self.captures = graph
+
+    def __call__(self, inputs):
+        if not self.captures:
+            self.state, outputs = self.body(self.state, inputs)
+            return outputs
+        if self.inputs is None:
+            self.inputs = _static(inputs)
+        else:
+            copy_into(self.inputs, inputs)
+        if self.graph is None:
+            outputs = self._run()
+            self.capture()
+            return outputs
+        return tree_map(torch.clone, super().__call__())
 
 
 def run(body, state, inputs, steps: int, *, graph, period=None):

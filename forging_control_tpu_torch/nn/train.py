@@ -15,9 +15,15 @@ controller on the L1 imitation loss of the recorded MPC commands
 (``Supervised Learning/Main.py:272-286``) or on the MPC loss through the
 frozen surrogate (``Unsupervised Learning/Main.py:326-348``).
 
-The JAX package runs each training run as one XLA program; here every
-epoch and batch is a Python loop over eager ops, and the host syncs once
-per epoch.  The surrogate's training step runs the module's autograd
+The JAX package runs each training run as one XLA program; here epochs
+and batches are a Python loop, and the host syncs once per epoch (the
+plant-in-loop trainer once per step).  On a card each training step
+(forward, backward through ``torch.autograd.grad``, gradient clipping and
+the optimizer update of ``nn/optim.py``, the counterpart of the optax
+pieces) is one replay of a CUDA graph, captured after the first, eager
+step (``loop.graph.Step``); its inputs (the batch's index row, noise and
+reference draws) are copied into static buffers outside the graph.  The
+surrogate's training step runs the module's autograd
 ``forward`` (the kernel has no backward, in either package); its validation
 forward runs under no-grad through ``infer``, so on a card it is one kernel
 launch per epoch.  The MPC-loss step differentiates the same autograd
@@ -29,12 +35,12 @@ runs pass the JAX package's in.  ``train_supervised`` and
 trains on its rows of every batch and the gradients and the loss are
 all-reduce-averaged before the step, so the ranks stay in step with the
 full batch's run; a batch that does not divide over the ranks stays whole
-on every rank, as the JAX package keeps it local.
+on every rank, as the JAX package keeps it local.  Such a run stays eager:
+its all-reduce (gloo, or NCCL) is not captured.
 """
 
 from __future__ import annotations
 
-import copy
 import math
 import time
 from dataclasses import dataclass, field
@@ -43,7 +49,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import fnn, mpc_loss
+from . import fnn, mpc_loss, optim
 
 
 @dataclass
@@ -81,83 +87,128 @@ def _tables(perms, epoch, gen, n, batch_size, device):
     return table.to(device)
 
 
+def _splits(mesh, batch_size: int) -> bool:
+    """Whether a batch is split over the mesh's ranks: not without a mesh,
+    nor when its size does not divide over the ranks."""
+    return mesh is not None and batch_size % mesh.size == 0
+
+
 def _rank_rows(mesh, idx):
-    """(this rank's rows of a batch's index table, whether the batch is
-    split): the whole batch without a mesh or when its size does not divide
-    over the mesh's ranks."""
-    if mesh is None or len(idx) % mesh.size:
-        return idx, False
+    """This rank's rows of a batch's index row: all of them unless the
+    batch is split."""
+    if not _splits(mesh, len(idx)):
+        return idx
     n = len(idx) // mesh.size
-    return idx[mesh.rank * n:(mesh.rank + 1) * n], True
+    return idx[mesh.rank * n:(mesh.rank + 1) * n]
 
 
-def _average_grads(mesh, params) -> None:
-    """All-reduce mean of every parameter's gradient, in place."""
-    from ..parallel.mesh import all_mean
-    params = list(params)
-    for v, g in zip(params, all_mean([v.grad for v in params], mesh)):
-        v.grad.copy_(g)
+def _captures(graph, device, mesh=None) -> bool:
+    """Whether a trainer runs its steps as replays of a CUDA graph
+    (``loop.graph.resolve``).  A run with a mesh stays eager: its gradient
+    all-reduce (gloo or NCCL) is not captured, and ``graph=True`` raises."""
+    if mesh is not None:
+        if graph:
+            raise ValueError("graph=True with mesh=: the gradient all-reduce "
+                             "is not captured; run with graph=None or False")
+        return False
+    from ..loop import graph as graph_mod
+    return graph_mod.resolve(graph, device)
 
 
-def _step_loss(mesh, loss, split):
-    """A step's loss for the report: the full batch's when it was split."""
-    if not split:
-        return loss.detach()
-    from ..parallel.mesh import all_mean
-    return all_mean(loss, mesh)
+def _grads(loss, params: list) -> list:
+    """Gradients of ``loss`` with respect to every parameter; zeros for
+    those it does not use (w_int, b_int at width_dim = 1), since optax
+    decays every leaf.  Nothing else the loss reaches (a frozen surrogate)
+    gets a gradient, and no ``.grad`` is written."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for v, g in zip(params, grads)]
+
+
+def _trainer_step(loss_fn, tx, params, *, graph: bool, mesh=None):
+    """A :class:`loop.graph.Step` from copies of ``params`` (a dict, taken
+    in the JAX package's leaf order, sorted keys, or a list) and ``tx``'s
+    initial state; ``loss_fn(parameters, inputs) -> loss``.  Its body takes
+    the gradients by ``torch.autograd.grad`` from parameters that alias the
+    state's, all-reduce-averages them and the loss over ``mesh`` when given,
+    and applies ``tx``'s update; it returns ((new parameters, new optimizer
+    state), loss)."""
+    from ..loop import graph as graph_mod
+
+    def body(state, inputs):
+        params, opt_state = state
+        live = graph_mod.tree_map(
+            lambda v: v.detach().requires_grad_(True), params)
+        leaves = graph_mod.leaves(live)
+        loss = loss_fn(live, inputs)
+        grads = _grads(loss, leaves)
+        loss = loss.detach()
+        if mesh is not None:
+            from ..parallel.mesh import all_mean
+            grads, loss = all_mean(grads, mesh), all_mean(loss, mesh)
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, opt_state, leaves)
+            new = optim.apply_updates(leaves, updates)
+        if isinstance(params, dict):
+            new = dict(zip(params, new))
+        return (new, opt_state), loss
+
+    if isinstance(params, dict):
+        params = {k: params[k].detach() for k in sorted(params)}
+    else:
+        params = [v.detach() for v in params]
+    state = (params, tx.init(graph_mod.leaves(params)))
+    return graph_mod.Step(body, state, graph=graph)
 
 
 def train_supervised(params, x_train, y_train, x_val, y_val, *,
                      width_dim=1, lr=1e-3, weight_decay=1e-2, epochs=20,
                      batch_size=256, loss_fn=l1_loss, seed=0, perms=None,
-                     log_fn: Callable | None = None, mesh=None):
+                     log_fn: Callable | None = None, mesh=None,
+                     graph: bool | None = None):
     """Supervised imitation trainer: the FNN mimics recorded MPC commands.
 
     ``params`` (a dict of tensors, ``nn/fnn.py``) is copied and the copy
     trained on its own device; the data (arrays or tensors) are moved there
     and promoted with the weights' dtype, as JAX promotes them.  Returns
     (trained params, :class:`TrainReport`).  ``perms`` and the batch tables
-    drawn without it are as in :func:`train_surrogate`; ``torch.optim.AdamW``
-    with its defaults is the arithmetic of ``optax.adamw``.  ``mesh``:
-    data-parallel batches (see the module docstring)."""
+    drawn without it are as in :func:`train_surrogate`; ``optim.adamw`` is
+    the arithmetic of ``optax.adamw``.  ``mesh``: data-parallel batches
+    (see the module docstring), eager.  ``graph``: every step (forward,
+    backward, AdamW) after the first is one replay of a CUDA graph
+    (``loop.graph.Step``); None captures on a card, False is the eager
+    reference, True needs a card and no mesh."""
     device = params["w_in"].device
-    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    captures = _captures(graph, device, mesh)
 
     def data(a):
         a = torch.as_tensor(a, device=device)
-        return a.to(torch.promote_types(a.dtype, p["w_in"].dtype))
+        return a.to(torch.promote_types(a.dtype, params["w_in"].dtype))
 
     xt, yt, xv, yv = map(data, (x_train, y_train, x_val, y_val))
-    opt = torch.optim.AdamW(list(p.values()), lr=lr,
-                            weight_decay=weight_decay)
-    # Zero gradients rather than none: optax decays every leaf, also those
-    # the forward does not use (w_int, b_int at width_dim = 1), and AdamW
-    # skips a parameter whose gradient is None.
-    for v in p.values():
-        v.grad = torch.zeros_like(v)
+    split = _splits(mesh, min(batch_size, len(xt)))
+
+    def batch_loss(p, idx):
+        idx = _rank_rows(mesh, idx)
+        return loss_fn(fnn.apply(p, xt[idx], width_dim), yt[idx])
+
+    step = _trainer_step(batch_loss, optim.adamw(lr, weight_decay), params,
+                         graph=captures, mesh=mesh if split else None)
     gen = torch.Generator().manual_seed(seed)
 
     report = TrainReport()
     t0 = time.time()
     for epoch in range(epochs):
-        losses = []
-        for idx in _tables(perms, epoch, gen, len(xt), batch_size, device):
-            idx, split = _rank_rows(mesh, idx)
-            loss = loss_fn(fnn.apply(p, xt[idx], width_dim), yt[idx])
-            opt.zero_grad(set_to_none=False)
-            loss.backward()
-            if split:
-                _average_grads(mesh, p.values())
-            opt.step()
-            losses.append(_step_loss(mesh, loss, split))
+        losses = [step(idx) for idx in
+                  _tables(perms, epoch, gen, len(xt), batch_size, device)]
         with torch.no_grad():
-            val = loss_fn(fnn.apply(p, xv, width_dim), yv)
+            val = loss_fn(fnn.apply(step.state[0], xv, width_dim), yv)
         report.train_losses.append(float(torch.stack(losses).mean()))
         report.val_losses.append(float(val))
         if log_fn:
             log_fn(epoch, report.train_losses[-1], report.val_losses[-1])
     report.wall_time_s = time.time() - t0
-    return {k: v.detach() for k, v in p.items()}, report
+    return {k: step.state[0][k].clone() for k in params}, report
 
 
 def make_closed_loop_val(in_scaler, u_scaler, *, n_traj: int = 8,
@@ -196,11 +247,21 @@ def make_closed_loop_val(in_scaler, u_scaler, *, n_traj: int = 8,
     refs = refs.to(device, dtype)
     x0 = torch.tensor(press.X0_REFERENCE, dtype=dtype,
                       device=device).repeat(refs.shape[0], 1)
+    # One controller for every call, whose policy reads these buffers: a
+    # call copies its candidate in, so run_batch's graph cache (keyed by
+    # the controller) replays the period captured at the first call.
+    weights, ctrl = {}, None
 
     @torch.no_grad()
     def val(params):
-        ctrl = cl.FunctionController(
-            fnn.make_policy(params, in_scaler, u_scaler, width_dim))
+        nonlocal ctrl
+        if ctrl is None:
+            weights.update({k: v.detach().to(device, dtype, copy=True)
+                            for k, v in params.items()})
+            ctrl = cl.FunctionController(
+                fnn.make_policy(weights, in_scaler, u_scaler, width_dim))
+        for k, v in params.items():
+            weights[k].copy_(v)
         _, telem = cl.run_batch(loop_cfg, ctrl, x0, refs,
                                 torch.Generator().manual_seed(seed + 9001),
                                 device=device)
@@ -209,57 +270,14 @@ def make_closed_loop_val(in_scaler, u_scaler, *, n_traj: int = 8,
     return val
 
 
-def cosine_decay_schedule(init_value: float, decay_steps: int,
-                          alpha: float = 0.0) -> Callable:
-    """``optax.cosine_decay_schedule``: update count -> learning rate,
-    ``init_value * ((1 - alpha) * (1 + cos(pi * min(t, T) / T)) / 2 +
-    alpha)``."""
-    if not decay_steps > 0:
-        raise ValueError(f"decay_steps must be positive, got {decay_steps}")
-
-    def schedule(count):
-        count = min(float(count), float(decay_steps))
-        cosine = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
-        return init_value * ((1 - alpha) * cosine + alpha)
-
-    return schedule
+cosine_decay_schedule = optim.cosine_decay_schedule
 
 
-def _adamw(params: dict, lr, weight_decay):
-    """``optax.adamw(lr, weight_decay)`` over ``params``: a
-    ``torch.optim.AdamW`` and, when ``lr`` is a schedule (update count ->
-    rate), the ``LambdaLR`` that steps it.  The first update uses
-    ``lr(0)``, as optax's does; the scheduler steps after every applied
-    update."""
-    if callable(lr):
-        opt = torch.optim.AdamW(list(params.values()), lr=1.0,
-                                weight_decay=weight_decay)
-        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr)
-    return torch.optim.AdamW(list(params.values()), lr=lr,
-                             weight_decay=weight_decay), None
-
-
-def _grads(loss, params: dict) -> list:
-    """Gradients of ``loss`` with respect to every parameter; zeros for
-    those it does not use (w_int, b_int at width_dim = 1), since optax
-    decays every leaf and AdamW skips a parameter whose gradient is None.
-    Nothing else the loss reaches (a frozen surrogate) gets a gradient."""
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return [torch.zeros_like(v) if g is None else g
-            for v, g in zip(params.values(), grads)]
-
-
-def _apply(opt, sched, params: dict, grads: list) -> None:
-    for v, g in zip(params.values(), grads):
-        v.grad = g
-    opt.step()
-    if sched is not None:
-        sched.step()
-
-
-def _trainable(params: dict) -> dict:
-    return {k: v.detach().clone().requires_grad_(True)
-            for k, v in params.items()}
+def _tensor(a, device, dtype) -> torch.Tensor:
+    """An array or tensor as a tensor on ``device`` in ``dtype``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))
+    return a.to(device, dtype)
 
 
 def _detached(params: dict) -> dict:
@@ -273,7 +291,7 @@ def train_unsupervised(controller_params, surrogate, x_train, u_train,
                        seed=0, keep_best=True,
                        closed_loop_val_fn: Callable | None = None,
                        log_fn: Callable | None = None, perms=None,
-                       noise=None):
+                       noise=None, graph: bool | None = None):
     """MPC-loss trainer: the FNN trained through the frozen LSTM surrogate.
 
     ``controller_params`` (a dict of tensors) is copied and the copy trained
@@ -292,32 +310,45 @@ def train_unsupervised(controller_params, surrogate, x_train, u_train,
     (N, B, 4) standard-normal draws of one batch's MPC loss when
     ``enable_noise`` (the JAX package's per-batch ``jax.random`` draws);
     without them both are drawn from a CPU ``torch.Generator`` seeded with
-    ``seed``.  Returns (params, :class:`TrainReport`).
+    ``seed``, each batch's noise before its step, outside the step.
+    ``graph``: as in :func:`train_supervised`; the validation and the
+    closed-loop selection run outside the step's graph.  Returns (params,
+    :class:`TrainReport`).
     """
     device = controller_params["w_in"].device
-    p = _trainable(controller_params)
+    captures = _captures(graph, device)
     xt, zt, xv, uv = (torch.as_tensor(a, device=device)
                       for a in (x_train, z_train, x_val, u_val))
-    opt, sched = _adamw(p, lr, weight_decay)
+    noise_dtype = torch.promote_types(zt.dtype, surrogate.w_out.dtype)
+
+    def batch_loss(p, inputs):
+        idx, draws = inputs
+        xb, zb = xt[idx], zt[idx]
+        return mpc_loss.mpc_loss(
+            p, surrogate, xb, fnn.apply(p, xb, width_dim), zb,
+            horizon=horizon, alpha=alpha, width_dim=width_dim, noise=draws,
+            noise_std=noise_sigma)[0]
+
+    def batch_noise(epoch, b, n):
+        if not enable_noise:
+            return None
+        if noise is not None:
+            return _tensor(noise[epoch][b], device, noise_dtype)
+        return torch.randn(horizon, n, 4, generator=gen,
+                           dtype=noise_dtype).to(device)
+
+    step = _trainer_step(batch_loss, optim.adamw(lr, weight_decay),
+                         controller_params, graph=captures)
     gen = torch.Generator().manual_seed(seed)
 
     report = TrainReport()
-    best_p, best_v = _detached(p), math.inf
+    best_p, best_v = _detached(controller_params), math.inf
     t0 = time.time()
     for epoch in range(epochs):
-        losses = []
         table = _tables(perms, epoch, gen, len(xt), batch_size, device)
-        for b, idx in enumerate(table):
-            xb, zb = xt[idx], zt[idx]
-            draws = (noise[epoch][b] if enable_noise and noise is not None
-                     else None)
-            loss, _ = mpc_loss.mpc_loss(
-                p, surrogate, xb, fnn.apply(p, xb, width_dim), zb,
-                horizon=horizon, alpha=alpha, width_dim=width_dim,
-                noise=draws, noise_std=noise_sigma,
-                generator=gen if enable_noise else None)
-            _apply(opt, sched, p, _grads(loss, p))
-            losses.append(loss.detach())
+        losses = [step((idx, batch_noise(epoch, b, len(idx))))
+                  for b, idx in enumerate(table)]
+        p = {k: step.state[0][k] for k in controller_params}
         with torch.no_grad():
             vl = float(mse_loss(fnn.apply(p, xv, width_dim), uv))
         report.train_losses.append(float(torch.stack(losses).mean()))
@@ -346,17 +377,6 @@ def train_unsupervised(controller_params, surrogate, x_train, u_train,
 MAX_CONSECUTIVE_ERRORS = 1000
 
 
-def _clip_by_global_norm(grads: list, keys: list, max_norm: float) -> list:
-    """``optax.clip_by_global_norm``: the norm over the leaves in the JAX
-    package's order (``keys`` sorted), each leaf scaled by max_norm / norm
-    unless the norm is below max_norm."""
-    order = sorted(range(len(keys)), key=keys.__getitem__)
-    g_norm = torch.sqrt(sum(torch.sum(torch.square(grads[i]))
-                            for i in order))
-    trigger = g_norm < max_norm
-    return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in grads]
-
-
 def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
                         t_steps=300, n_traj=32, steps=300, lr=1e-3,
                         weight_decay=1e-2, rterm=0.02, pressure_weight=1.0,
@@ -365,7 +385,7 @@ def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
                         val_every=10, keep_best=True,
                         closed_loop_val_fn: Callable | None = None,
                         log_fn: Callable | None = None, refs=None,
-                        noise=None):
+                        noise=None, graph: bool | None = None):
     """Analytic-policy-gradient trainer: the FNN trained by
     backpropagation through full closed-loop episodes of the true RK4 plant.
 
@@ -389,18 +409,29 @@ def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
     t_steps, 5; process noise, already scaled) replace the per-step draws
     (reference streams from a CPU ``torch.Generator`` seeded with
     ``seed``, which then draws the plant noise), so parity runs pass the
-    JAX package's.  The episode reads the live parameters through
-    ``fnn.make_policy(..., cache=False)``.  Returns (params,
-    :class:`TrainReport`).
+    JAX package's.  Both are drawn before the step, outside it, in the
+    eager loop's order.  The episode reads the live parameters through
+    ``fnn.make_policy(..., cache=False)``.
+
+    ``graph``: as in :func:`train_supervised`.  On a card the whole step
+    (the ``t_steps`` periods of the closed loop, whose ``run_batch`` runs
+    eagerly inside the capture, the backward pass through them, the
+    clipping and the update under ``optim.apply_if_finite``) is one CUDA
+    graph, replayed from the second step on; its pool holds every saved
+    activation of the episode.  The divergence rewind stays on the host
+    after each step (one read of the loss), and copies its snapshot into
+    the step's buffers.  Returns (params, :class:`TrainReport`).
     """
     from .. import dual as ad
     from ..loop import closed_loop as cl
+    from ..loop import graph as graph_mod
     from ..physics.scaling import U_SCALE
     from ..refgen import streams
+    from .scalers import Scaler
 
     device = params["w_in"].device
     dtype = params["w_in"].dtype
-    p = _trainable(params)
+    captures = _captures(graph, device)
     # state_clip keeps training episodes finite when a candidate policy
     # excites the stiff pressure dynamics (evaluation paths never clip).
     loop_cfg = cl.LoopConfig(t_steps=t_steps, variant=variant,
@@ -408,15 +439,23 @@ def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
                              state_clip=(1.0, 10.0, 1e9, 1e9, 1.0))
     x0 = torch.tensor(cl.press.X0_REFERENCE, dtype=dtype,
                       device=device).repeat(n_traj, 1)
-    opt, sched = _adamw(p, cosine_decay_schedule(lr, max(steps, 1),
-                                                 alpha=0.05), weight_decay)
-    ctrl = cl.FunctionController(fnn.make_policy(p, in_scaler, u_scaler,
-                                                 width_dim, cache=False))
+    # The policy casts the scalers to the loop's device and dtype at every
+    # period: have them there, so a captured period copies nothing in.
+    in_sc, u_sc = (Scaler(*(torch.as_tensor(t).to(device, dtype)
+                            for t in sc)) for sc in (in_scaler, u_scaler))
+    tx = optim.apply_if_finite(optim.chain(
+        optim.clip_by_global_norm(clip_norm),
+        optim.adamw(cosine_decay_schedule(lr, max(steps, 1), alpha=0.05),
+                    weight_decay)), MAX_CONSECUTIVE_ERRORS)
     gen = torch.Generator().manual_seed(seed)
 
-    def episode_cost(refs_s, noise_s):
-        _, telem = cl.run_batch(loop_cfg, ctrl, x0, refs_s, gen,
-                                process_noise=noise_s, device=device)
+    def episode_cost(p, inputs):
+        refs_s, noise_s = inputs
+        ctrl = cl.FunctionController(fnn.make_policy(p, in_sc, u_sc,
+                                                     width_dim, cache=False))
+        _, telem = cl.run_batch(loop_cfg, ctrl, x0, refs_s,
+                                process_noise=noise_s, device=device,
+                                graph=False)
         # Saturated per-step tracking cost: one diverged episode must not
         # own the batch gradient.
         err2 = torch.square(telem.x[..., 1] - telem.ref)
@@ -429,44 +468,39 @@ def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
             torch.relu(-p_scaled) + torch.relu(p_scaled - 3.2), 10.0))
         return track + smooth + barrier
 
-    def snapshot(loss):
-        return (_detached(p), copy.deepcopy(opt.state_dict()),
-                copy.deepcopy(sched.state_dict()), notfinite, loss)
-
-    report = TrainReport()
-    best_params, best_val = _detached(p), math.inf
-    best_train = math.inf
-    notfinite = 0
-    snap = snapshot(math.inf)
-    t0 = time.time()
-    for step in range(steps):
-        refs_s = (refs[step] if refs is not None
+    def draws(step):
+        """The step's references (n_traj, t_steps) and plant noise
+        (n_traj, t_steps, 5; None without noise), on the device: the given
+        ones, else drawn from ``gen`` (the references first)."""
+        refs_s = (_tensor(refs[step], device, dtype) if refs is not None
                   else streams.sample_references(gen, n_traj, ref_variant,
                                                  t_steps, dtype=dtype,
                                                  device=device))
-        loss = episode_cost(refs_s, None if noise is None else noise[step])
-        grads = _grads(loss, p)
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads]).all())
-        notfinite = 0 if finite else notfinite + 1
-        if finite or notfinite > MAX_CONSECUTIVE_ERRORS:
-            _apply(opt, sched, p, _clip_by_global_norm(grads, list(p),
-                                                       clip_norm))
-        l = float(loss.detach())
-        # Rewind on divergence to the best-loss snapshot; the decayed
-        # schedule takes a smaller step past the cliff next time.
+        if noise is not None:
+            return refs_s, _tensor(noise[step], device, dtype)
+        return refs_s, cl.draw_noise(loop_cfg, gen, n_traj, dtype, device)[0]
+
+    step_fn = _trainer_step(episode_cost, tx, params, graph=captures)
+
+    report = TrainReport()
+    best_params, best_val = _detached(params), math.inf
+    best_train = math.inf
+    snap = graph_mod.tree_map(torch.clone, step_fn.state), math.inf
+    t0 = time.time()
+    for step in range(steps):
+        l = float(step_fn(draws(step)))
+        # Rewind on divergence to the best-loss snapshot (the parameters
+        # and the optimizer's state); the decayed schedule takes a smaller
+        # step past the cliff next time.
         if not math.isfinite(l) or (math.isfinite(best_train)
                                     and l > 4.0 * max(best_train, 1e-3)):
-            snap_p, snap_opt, snap_sched, notfinite, l = snap
-            with torch.no_grad():
-                for k, v in p.items():
-                    v.copy_(snap_p[k])
-            opt.load_state_dict(copy.deepcopy(snap_opt))
-            sched.load_state_dict(copy.deepcopy(snap_sched))
+            graph_mod.copy_into(step_fn.state, snap[0])
+            l = snap[1]
         elif l < best_train:
             best_train = l
-            snap = snapshot(l)
+            snap = graph_mod.tree_map(torch.clone, step_fn.state), l
         report.train_losses.append(l)
+        p = {k: step_fn.state[0][k] for k in params}
         if closed_loop_val_fn is not None and (
                 step % val_every == val_every - 1 or step == steps - 1):
             sel = float(closed_loop_val_fn(p))
@@ -481,7 +515,7 @@ def train_plant_in_loop(params, in_scaler, u_scaler, *, width_dim=1,
     report.wall_time_s = time.time() - t0
     if keep_best and closed_loop_val_fn is not None:
         return best_params, report
-    return _detached(p), report
+    return _detached({k: step_fn.state[0][k] for k in params}), report
 
 
 @torch.no_grad()
@@ -489,7 +523,7 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
                    width_dim=1, variant="smooth", process_std=(0.0,) * 5,
                    backend="sqp", beta=0.0, dtype=torch.float32,
                    generator: torch.Generator | None = None,
-                   process_noise=None):
+                   process_noise=None, graph: bool | None = None):
     """Roll the student policy in closed loop while the MPC teacher labels
     every visited state: the DAgger data-collection pass.
 
@@ -500,7 +534,8 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     device of ``params``; on a card every damped normal solve of the SQP
     teacher is a launch of kernel B1, ``gn_iters x al_iters`` per step, and
     every step after the first is one replay of a CUDA graph of the step
-    (``loop.graph``).  Process noise: ``process_noise`` (B, T, 5, already
+    (``loop.graph``; ``graph`` as in :func:`train_supervised`).  Process
+    noise: ``process_noise`` (B, T, 5, already
     scaled), else drawn from ``generator`` when ``process_std`` is
     nonzero.
 
@@ -509,7 +544,7 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     """
     from ..integrate.rk4 import rk4_step
     from ..loop import closed_loop as cl
-    from ..loop import graph
+    from ..loop import graph as graph_mod
 
     device = params["w_in"].device
     refs = torch.as_tensor(refs).to(device, dtype)
@@ -547,8 +582,8 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     state = (x_true, measure(x_true), torch.zeros(B, dtype=dtype,
                                                   device=device),
              teacher.init_carry_batch(B, dtype, device))
-    _, outs, _ = graph.run(period, state, inputs, T,
-                           graph=None if device.type == "cuda" else False)
+    _, outs, _ = graph_mod.run(period, state, inputs, T,
+                               graph=graph_mod.resolve(graph, device))
     feats, labels = zip(*outs)
     return torch.stack(feats, dim=1), torch.stack(labels, dim=1)
 
@@ -566,7 +601,7 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
                  backend="sqp", seed=0, variant="smooth",
                  closed_loop_val_fn: Callable | None = None,
                  log_fn: Callable | None = None, perms=None, refs=None,
-                 noise=None):
+                 noise=None, graph: bool | None = None):
     """DAgger: iterated imitation with expert relabelling on the student's
     own closed-loop distribution.
 
@@ -581,8 +616,9 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
     Per round ``r``: ``perms[r]`` are its batch tables (training seed
     ``seed + r``), and before relabelling round ``r``, ``refs[r]`` (n_traj,
     t_steps) and ``noise[r]`` (n_traj, t_steps, 5) replace the draws from a
-    CPU ``torch.Generator`` seeded with ``seed + 77``.  Returns (params,
-    :class:`TrainReport`).
+    CPU ``torch.Generator`` seeded with ``seed + 77``.  ``graph``: passed
+    to both (the imitation steps and the rollout's periods replay CUDA
+    graphs on a card).  Returns (params, :class:`TrainReport`).
     """
     from ..refgen import streams
 
@@ -597,7 +633,7 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
             params, np.concatenate(X, axis=0), np.concatenate(U, axis=0),
             x_val, u_val, width_dim=width_dim, lr=lr, epochs=epochs,
             batch_size=batch_size, seed=seed + r,
-            perms=None if perms is None else perms[r])
+            perms=None if perms is None else perms[r], graph=graph)
         report.train_losses.extend(rep.train_losses)
         report.val_losses.extend(rep.val_losses)
         if closed_loop_val_fn is not None:
@@ -618,7 +654,7 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
             params, in_scaler, u_scaler, mpc_cfg, refs_r,
             width_dim=width_dim, variant=variant, process_std=process_std,
             backend=backend, generator=gen,
-            process_noise=None if noise is None else noise[r])
+            process_noise=None if noise is None else noise[r], graph=graph)
         X.append(_float32(in_scaler.transform(feats.cpu().reshape(-1, 3))))
         U.append(_float32(u_scaler.transform(labels.cpu().reshape(-1, 1))))
     report.wall_time_s = time.time() - t0
@@ -629,40 +665,55 @@ def train_dagger(params, in_scaler, u_scaler, x_init, u_init, x_val, u_val,
 
 def train_surrogate(model, x_train, y_train, x_val, y_val, *, lr=1e-3,
                     weight_decay=1e-2, epochs=50, batch_size=256, seed=0,
-                    perms=None, log_fn: Callable | None = None, mesh=None):
+                    perms=None, log_fn: Callable | None = None, mesh=None,
+                    graph: bool | None = None):
     """LSTM surrogate trainer: teacher-forced next-step MSE.
 
     ``model`` (an ``LSTMSurrogate``) is trained in place on its own device
     and returned with a :class:`TrainReport`.  The data are tensors on that
     device.  ``perms``, if given, holds one (n_batches, batch_size) index
     table per epoch (e.g. the JAX package's); otherwise they are drawn from
-    a CPU ``torch.Generator`` seeded with ``seed``.  ``log_fn(epoch,
-    train_loss, val_loss)`` is called after each epoch.
+    a CPU ``torch.Generator`` seeded with ``seed``, and each epoch's table
+    is copied to the device once.  ``log_fn(epoch, train_loss, val_loss)``
+    is called after each epoch.
 
-    ``torch.optim.AdamW(lr, weight_decay)`` with its defaults (beta =
-    0.9/0.999, eps = 1e-8, decay on every parameter) is the arithmetic of
-    ``optax.adamw``.  ``mesh``: data-parallel batches (see the module
-    docstring).
+    ``optim.adamw(lr, weight_decay)`` (beta = 0.9/0.999, eps = 1e-8, decay
+    on every parameter) is the arithmetic of ``optax.adamw``.  The step
+    differentiates the plain LSTM (``LSTMSurrogate.forward``); the
+    per-epoch validation runs ``infer`` (kernel B2 on a card) after the
+    trained weights are copied into the model.  ``mesh``: data-parallel
+    batches (see the module docstring), eager.  ``graph``: as in
+    :func:`train_supervised`.
     """
+    from ..ops import lstm as lstm_ops
+
     device = x_train.device
-    opt = torch.optim.AdamW(model.parameters(), lr=lr,
-                            weight_decay=weight_decay)
-    gen = torch.Generator().manual_seed(seed)
+    captures = _captures(graph, device, mesh)
     n = x_train.shape[0]
+    L = len(model.w_ih)
+    split = _splits(mesh, min(batch_size, n))
+    w_ih, w_hh, w_out, b_out = model.weights()
+    weights = [*w_ih, *w_hh, w_out, *([] if b_out is None else [b_out])]
+
+    def batch_loss(p, idx):
+        idx = _rank_rows(mesh, idx)
+        return mse_loss(lstm_ops.lstm_forward_torch(
+            x_train[idx], p[:L], p[L:2 * L], p[2 * L], *p[2 * L + 1:]),
+            y_train[idx])
+
+    step = _trainer_step(batch_loss, optim.adamw(lr, weight_decay),
+                         weights, graph=captures,
+                         mesh=mesh if split else None)
+    gen = torch.Generator().manual_seed(seed)
 
     report = TrainReport()
     t0 = time.time()
     for epoch in range(epochs):
-        losses = []
-        for idx in _tables(perms, epoch, gen, n, batch_size, device):
-            idx, split = _rank_rows(mesh, idx)
-            loss = mse_loss(model(x_train[idx]), y_train[idx])
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            if split:
-                _average_grads(mesh, model.parameters())
-            opt.step()
-            losses.append(_step_loss(mesh, loss, split))
+        losses = [step(idx)
+                  for idx in _tables(perms, epoch, gen, n, batch_size, device)]
+        with torch.no_grad():
+            for v, trained in zip(weights, step.state[0]):
+                v.copy_(trained)
         val = mse_loss(model.infer(x_val), y_val)
         report.train_losses.append(float(torch.stack(losses).mean()))
         report.val_losses.append(float(val))

@@ -23,7 +23,7 @@ from forging_control_tpu_torch.eval import (html_dash, metrics, plots,
                                             report, wide_panel)
 from forging_control_tpu_torch.loop import closed_loop, graph
 from forging_control_tpu_torch.nn import (datasets, fnn, lstm, mpc_loss,
-                                          scalers, surrogate_eval,
+                                          optim, scalers, surrogate_eval,
                                           torch_compat, train)
 from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
 from forging_control_tpu_torch.pipelines import (config, generate_data,
