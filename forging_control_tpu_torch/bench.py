@@ -5,13 +5,21 @@ benchmark): the full closed-loop engine (batched MPC solve + RK4 plant +
 telemetry) over a scenario batch, reported as closed-loop MPC solves per
 second.  Run it as ``python -m forging_control_tpu_torch.bench``; it prints
 ONE JSON line with ``bench.py``'s keys (without XLA's cost-analysis fields)
-plus ``device`` (the card's name and power limit), ``steps``,
-``chol_kernel_launches`` (launches of the Cholesky kernel in one T-step
-run) and ``kernel_check``: before it times anything, a run on the SQP
-backend's kernel solve (``linsolve="kernel"``) takes one control step at
-B = 64 through the kernel and through the plain solve on the same inputs
-and refuses to go on unless the commands agree within 1e-4
-(:func:`kernel_check`; None on the iLQR backend, which has no kernel).
+plus ``device`` (the card's name and power limit), ``steps``, ``kernels``
+(the hand-written kernels of the backend's path) with
+``kernel_launches`` (their launches in one T-step run) and
+``kernel_check``.
+
+The kernels that run, per backend, on a card: the SQP launches the small
+Cholesky solve B1 (``ops/smallchol.py``) gn x al times a step; the AL-iLQR
+launches its whole solve K5 (``ops/ilqr.py``) once a step; both launch the
+plant step K4 (``ops/plant.py``) once a step.  On the CPU every one of them
+runs its plain version.
+
+Before it times anything, a run through the kernels (``linsolve="kernel"``)
+takes one control step at B = 64 through the backend's kernel and through
+its plain version on the same inputs and refuses to go on unless the
+commands agree within 1e-4 (:func:`kernel_check`).
 
 Env knobs, with ``bench.py``'s defaults: BENCH_BATCH (4096), BENCH_STEPS
 (300), BENCH_HORIZON (10), BENCH_REPS (3), BENCH_BACKEND ("ilqr"; "sqp" for
@@ -36,6 +44,8 @@ import torch
 
 from .device import resolve_device
 from .loop.closed_loop import LoopConfig, MPCController, run_batch
+from .ops.ilqr import ilqr_cuda
+from .ops.plant import plant_step_cuda
 from .ops.smallchol import chol_solve_cuda
 from .physics.press import X0_REFERENCE
 from .refgen import streams
@@ -138,16 +148,51 @@ def _runner(N, B, T, preset, backend, device, linsolve, seed, dtype):
 
 CHECK_BATCH = 64
 CHECK_TOL = 1e-4       # commands are O(0.1); the closed loop damps rounding
+# Where a solve turns rounding into other accepted steps, the share of
+# scenarios in which the kernel parts from a reference may exceed the
+# plain version's share by this much (PERF.md, K5's findings).
+SHARE_SLACK = 0.02
 
 
-def kernel_check(N, preset, *, device="cuda", seed=0,
+def far_share(a, b, tol) -> float:
+    """Share of the scenarios (leading axis) where ``a`` and ``b`` part by
+    more than ``tol`` anywhere."""
+    far = ((a - b).abs() > tol).reshape(a.shape[0], -1).any(1)
+    return float(far.double().mean())
+
+# The hand-written kernels of each backend's path on a card.
+KERNELS = {"sqp": ("chol_solve", "plant"), "ilqr": ("ilqr", "plant")}
+_WRAPPERS = {"chol_solve": chol_solve_cuda, "ilqr": ilqr_cuda,
+             "plant": plant_step_cuda}
+
+
+def _launches() -> dict:
+    return {k: f.launches for k, f in _WRAPPERS.items()}
+
+
+def _since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _launches().items()}
+
+
+def kernel_check(N, preset, *, backend="sqp", device="cuda", seed=0,
                  dtype=torch.float32) -> dict:
-    """One control step of the SQP closed loop at B = ``CHECK_BATCH``
-    through the kernel solve and through the plain one
-    (``chol_solve_torch``), from the same states and references.  The two
-    do the same arithmetic apart from the linear solve's rounding.  Returns
-    the largest command gap, the tolerance and the kernel's launches;
-    raises if the gap exceeds ``CHECK_TOL`` or a command is not finite."""
+    """One control step of the closed loop at B = ``CHECK_BATCH`` through
+    the backend's kernel and through its plain version
+    (``linsolve="plain"``: the plain Cholesky solve for the SQP, the tensor
+    code of the whole solve for the AL-iLQR), from the same states and
+    references; the plant step is K4 in both.  Returns the largest command
+    gap, the tolerance and the kernels' launches; raises if the gap exceeds
+    ``CHECK_TOL`` or a command is not finite.
+
+    The AL-iLQR's kernel and plain version differ in the order of their
+    sums, and a float32 solve turns that into other accepted steps where
+    the line search's costs lie within float32 rounding: at N = 5 and 25
+    the plain float32 solve itself lies more than ``CHECK_TOL`` from the
+    float64 one (PERF.md, K5's findings).  So where the float32 commands of the two
+    differ by more than ``CHECK_TOL``, the AL-iLQR check holds the kernel
+    to the float64 plain solve instead: the share of scenarios whose
+    command lies more than ``CHECK_TOL`` from it may exceed the plain
+    float32 solve's share by at most ``SHARE_SLACK``."""
     device = resolve_device(device)
     cfg = PRESETS[preset](horizon=N, variant="smooth")
     refs = streams.sample_references(torch.Generator().manual_seed(seed),
@@ -155,39 +200,53 @@ def kernel_check(N, preset, *, device="cuda", seed=0,
                                      dtype=dtype, device=device)
     x0 = torch.tensor(X0_REFERENCE, dtype=dtype,
                       device=device).repeat(CHECK_BATCH, 1)
-    launches0 = chol_solve_cuda.launches
-    u = {ls: run_batch(LoopConfig(t_steps=1, variant="smooth"),
-                       MPCController(cfg, linsolve=ls), x0, refs,
-                       device=device)[1].u
-         for ls in ("kernel", "plain")}
+
+    def step(linsolve, dt=dtype):
+        return run_batch(LoopConfig(t_steps=1, variant="smooth"),
+                         MPCController(cfg, backend=backend,
+                                       linsolve=linsolve), x0.to(dt),
+                         refs.to(dt), device=device)[1].u
+
+    before = _launches()
+    u = {ls: step(ls) for ls in ("kernel", "plain")}
     du = float((u["kernel"] - u["plain"]).abs().max())
-    rec = {"batch": CHECK_BATCH, "steps": 1, "max_abs_du": du,
-           "tolerance": CHECK_TOL,
-           "chol_kernel_launches": chol_solve_cuda.launches - launches0}
-    if not (bool(torch.isfinite(u["kernel"]).all()) and du <= CHECK_TOL):
-        raise RuntimeError(f"kernel check failed: the kernel and plain "
-                           f"solves' commands differ by {du:.3e} at "
-                           f"B = {CHECK_BATCH} (tolerance {CHECK_TOL})")
+    rec = {"batch": CHECK_BATCH, "steps": 1, "backend": backend,
+           "max_abs_du": du, "tolerance": CHECK_TOL}
+    ok = du <= CHECK_TOL
+    if not ok and backend == "ilqr" and dtype != torch.float64:
+        u64 = step("plain", torch.float64)
+        far = {k: far_share(v.double(), u64, CHECK_TOL) for k, v in u.items()}
+        rec["float64_reference"] = {"kernel_far_share": far["kernel"],
+                                    "plain_far_share": far["plain"]}
+        ok = far["kernel"] <= far["plain"] + SHARE_SLACK
+    rec["kernel_launches"] = _since(before)
+    if not (bool(torch.isfinite(u["kernel"]).all()) and ok):
+        raise RuntimeError(f"kernel check failed: the {backend} kernel and "
+                           f"plain paths' commands differ by {du:.3e} at "
+                           f"B = {CHECK_BATCH} (tolerance {CHECK_TOL}"
+                           + (f"; against float64 "
+                              f"{rec['float64_reference']}"
+                              if "float64_reference" in rec else "") + ")")
     return rec
 
 
 def run_bench(N, B, T, reps, preset, backend, *, device="cuda",
               linsolve="kernel", seed=0, dtype=torch.float32):
     """Time ``reps`` closed-loop runs of T steps over B scenarios after one
-    warm-up run; returns the JSON record (best run).  On the SQP backend's
-    kernel solve, :func:`kernel_check` passes first."""
+    warm-up run; returns the JSON record (best run).  Through the kernels
+    (``linsolve="kernel"``), :func:`kernel_check` passes first."""
     device = resolve_device(device)
     check = None
-    if backend == "sqp" and linsolve == "kernel":
-        check = kernel_check(N, preset, device=device, seed=seed,
-                             dtype=dtype)
+    if linsolve == "kernel":
+        check = kernel_check(N, preset, backend=backend, device=device,
+                             seed=seed, dtype=dtype)
     run = _runner(N, B, T, preset, backend, device, linsolve, seed, dtype)
 
     # Warm-up (first-call set-up: kernel build and load, library handles);
     # its kernel launches are the per-run count.
-    launches0 = chol_solve_cuda.launches
+    before = _launches()
     telem, _ = run()
-    launches = chol_solve_cuda.launches - launches0
+    launches = _since(before)
     if not bool(torch.isfinite(telem.u).all()):
         raise RuntimeError("non-finite commands")
 
@@ -205,7 +264,8 @@ def run_bench(N, B, T, reps, preset, backend, *, device="cuda",
         "linsolve": linsolve,
         "steps": T,
         "device": device_info(device),
-        "chol_kernel_launches": launches,
+        "kernels": list(KERNELS[backend]),
+        "kernel_launches": launches,
         "kernel_check": check,
     }
     if N != 10:

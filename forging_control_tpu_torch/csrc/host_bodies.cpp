@@ -1,0 +1,225 @@
+// The bodies of kernels K4 and K5 (bodies.cuh) on the CPU: the same C
+// interface as csrc/plant.cu and csrc/ilqr.cu, without the stream, each
+// scenario in turn, for the tests; and the same bodies on op_count.h's
+// counting scalar (fct_plant_ops_*, fct_ilqr_ops_*), which give the
+// operations that the kernels need for given inputs (chip_smoke.py's
+// bounds).  Built with g++ -O2 -ffp-contract=off (ops/build.py build_host)
+// so that every multiply and add rounds on its own, as PyTorch's CPU
+// kernels do; no path of the port calls it.
+
+#include <thread>
+#include <vector>
+
+#include "op_count.h"
+#include "bodies.cuh"
+
+namespace {
+
+template <class T>
+int plant(const fct::PressParams* P, const fct::PlantCfg* c, const T* xt,
+          const T* xm, const T* u, const T* w, const T* v, T* xn, T* xmn,
+          T* Fd, int B) {
+  if (B < 0 || c->substeps < 1) return 1;
+  for (int b = 0; b < B; ++b)
+    fct::plant_body<T>(*P, *c, xt + 5 * b, xm + 5 * b, u[b],
+                       w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
+                       xn + 5 * b, xmn + 5 * b, Fd + b);
+  return 0;
+}
+
+template <class T>
+int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
+         int B) {
+  if (B < 0 || c->N < 1 || c->N > 25 || (c->nc != 2 && c->nc != 4) ||
+      c->substeps < 1)
+    return 1;
+  const fct::IlqrIO<T> io = fct::ilqr_io<T>(p);
+  for (int b = 0; b < B; ++b) fct::ilqr_body<T>(*P, *c, io, b, B);
+  return 0;
+}
+
+// fn(lo, hi) over [0, B) in `threads` contiguous chunks, one thread each;
+// the per-thread operation counts summed into ops[kOpPhases].
+template <class Fn>
+void counted_chunks(int B, int threads, unsigned long long* ops, Fn fn) {
+  if (threads < 1) threads = 1;
+  std::vector<std::thread> pool;
+  std::vector<unsigned long long> sums(threads * fct::kOpPhases, 0);
+  for (int t = 0; t < threads; ++t) {
+    const int lo = (long long)B * t / threads;
+    const int hi = (long long)B * (t + 1) / threads;
+    pool.emplace_back([=, &sums] {
+      for (int p = 0; p < fct::kOpPhases; ++p) fct::op_counts[p] = 0;
+      fn(lo, hi);
+      for (int p = 0; p < fct::kOpPhases; ++p)
+        sums[t * fct::kOpPhases + p] = fct::op_counts[p];
+    });
+  }
+  for (auto& th : pool) th.join();
+  for (int p = 0; p < fct::kOpPhases; ++p) {
+    ops[p] = 0;
+    for (int t = 0; t < threads; ++t) ops[p] += sums[t * fct::kOpPhases + p];
+  }
+}
+
+template <class F>
+std::vector<fct::Counted<F>> counted_in(const F* a, long long n) {
+  std::vector<fct::Counted<F>> out(a ? n : 0);
+  for (long long i = 0; i < (long long)out.size(); ++i)
+    out[i] = fct::Counted<F>::var(a[i]);
+  return out;
+}
+
+template <class F>
+void counted_out(const std::vector<fct::Counted<F>>& a, F* out) {
+  if (!out) return;
+  for (size_t i = 0; i < a.size(); ++i) out[i] = a[i].x;
+}
+
+// K4's body on counted scalars: the outputs as plant<F> gives them, and
+// the operations by phase (0: Fd, 1: RK4, 2: clip and measurement).
+template <class F>
+int plant_ops(const fct::PressParams* P, const fct::PlantCfg* c, const F* xt,
+              const F* xm, const F* u, const F* w, const F* v, F* xn, F* xmn,
+              F* Fd, int B, int threads, unsigned long long* ops) {
+  typedef fct::Counted<F> C;
+  if (B < 0 || c->substeps < 1) return 1;
+  const auto cxt = counted_in(xt, 5LL * B), cxm = counted_in(xm, 5LL * B),
+             cu = counted_in(u, B), cw = counted_in(w, 5LL * B),
+             cv = counted_in(v, 5LL * B);
+  std::vector<C> cxn(5LL * B), cxmn(5LL * B), cFd(B);
+  counted_chunks(B, threads, ops, [&](int lo, int hi) {
+    for (int b = lo; b < hi; ++b)
+      fct::plant_body<C>(*P, *c, &cxt[5 * b], &cxm[5 * b], cu[b],
+                         w ? &cw[5 * b] : nullptr, v ? &cv[5 * b] : nullptr,
+                         &cxn[5 * b], &cxmn[5 * b], &cFd[b]);
+  });
+  counted_out(cxn, xn);
+  counted_out(cxmn, xmn);
+  counted_out(cFd, Fd);
+  return 0;
+}
+
+// K5's body on counted scalars: the outputs as ilqr<F> gives them, and
+// the operations by phase (bodies.cuh ilqr_body: 0 the initial rollout,
+// 1 the stages' RK4 with tangents, 2 the residuals and Gauss-Newton
+// blocks, 3 the backward sweep, 4 the forward sweep, 5 the accept rule,
+// the AL update and the diagnostics).
+template <class F>
+int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
+             void* const* p, int B, int threads, unsigned long long* ops) {
+  typedef fct::Counted<F> C;
+  if (B < 0 || c->N < 1 || c->N > 25 || (c->nc != 2 && c->nc != 4) ||
+      c->substeps < 1)
+    return 1;
+  const long long N = c->N, nc = c->nc;
+  const long long rows = (long long)c->al_iters * c->gn_iters * 6;
+  const fct::IlqrIO<F> io = fct::ilqr_io<F>(p);
+  const auto x0 = counted_in(io.x0, 5 * B), ref = counted_in(io.ref, B),
+             up = counted_in(io.u_prev, B), v_in = counted_in(io.v_in, N * B),
+             lam_in = counted_in(io.lam_in, N * nc * B);
+  std::vector<C> u0(B), v(N * B), lam(N * nc * B), obj(B), inf_pr(B),
+      inf_du(B), reg(B), d_norm(B), mu(B), alpha(B),
+      trace(c->record_trace ? rows * B : 0),
+      scratch((long long)fct::ilqr_scratch_fields(c->N) * B);
+  fct::IlqrIO<C> cio;
+  cio.x0 = x0.data();
+  cio.ref = ref.data();
+  cio.u_prev = up.data();
+  cio.v_in = v_in.data();
+  cio.lam_in = lam_in.data();
+  cio.u0 = u0.data();
+  cio.v = v.data();
+  cio.lam = lam.data();
+  cio.iters = io.iters;
+  cio.obj = obj.data();
+  cio.inf_pr = inf_pr.data();
+  cio.inf_du = inf_du.data();
+  cio.reg = reg.data();
+  cio.d_norm = d_norm.data();
+  cio.mu = mu.data();
+  cio.alpha = alpha.data();
+  cio.trace = trace.data();
+  cio.scratch = scratch.data();
+  counted_chunks(B, threads, ops, [&](int lo, int hi) {
+    for (int b = lo; b < hi; ++b) fct::ilqr_body<C>(*P, *c, cio, b, B);
+  });
+  counted_out(u0, io.u0);
+  counted_out(v, io.v);
+  counted_out(lam, io.lam);
+  counted_out(obj, io.obj);
+  counted_out(inf_pr, io.inf_pr);
+  counted_out(inf_du, io.inf_du);
+  counted_out(reg, io.reg);
+  counted_out(d_norm, io.d_norm);
+  counted_out(mu, io.mu);
+  counted_out(alpha, io.alpha);
+  counted_out(trace, io.trace);
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int fct_op_phases() { return fct::kOpPhases; }
+
+extern "C" int fct_plant_ops_f32(const fct::PressParams* P,
+                                 const fct::PlantCfg* c, const float* xt,
+                                 const float* xm, const float* u,
+                                 const float* w, const float* v, float* xn,
+                                 float* xmn, float* Fd, int B, int threads,
+                                 unsigned long long* ops) {
+  return plant_ops<float>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B, threads,
+                          ops);
+}
+
+extern "C" int fct_plant_ops_f64(const fct::PressParams* P,
+                                 const fct::PlantCfg* c, const double* xt,
+                                 const double* xm, const double* u,
+                                 const double* w, const double* v, double* xn,
+                                 double* xmn, double* Fd, int B, int threads,
+                                 unsigned long long* ops) {
+  return plant_ops<double>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B, threads,
+                           ops);
+}
+
+extern "C" int fct_ilqr_ops_f32(const fct::PressParams* P,
+                                const fct::IlqrCfg* c, void* const* ptrs,
+                                int B, int threads, unsigned long long* ops) {
+  return ilqr_ops<float>(P, c, ptrs, B, threads, ops);
+}
+
+extern "C" int fct_ilqr_ops_f64(const fct::PressParams* P,
+                                const fct::IlqrCfg* c, void* const* ptrs,
+                                int B, int threads, unsigned long long* ops) {
+  return ilqr_ops<double>(P, c, ptrs, B, threads, ops);
+}
+
+extern "C" int fct_ilqr_scratch_fields(int N) {
+  return fct::ilqr_scratch_fields(N);
+}
+
+extern "C" int fct_plant_f32(const fct::PressParams* P,
+                             const fct::PlantCfg* c, const float* xt,
+                             const float* xm, const float* u, const float* w,
+                             const float* v, float* xn, float* xmn, float* Fd,
+                             int B) {
+  return plant<float>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B);
+}
+
+extern "C" int fct_plant_f64(const fct::PressParams* P,
+                             const fct::PlantCfg* c, const double* xt,
+                             const double* xm, const double* u,
+                             const double* w, const double* v, double* xn,
+                             double* xmn, double* Fd, int B) {
+  return plant<double>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B);
+}
+
+extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
+                            void* const* ptrs, int B) {
+  return ilqr<float>(P, c, ptrs, B);
+}
+
+extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
+                            void* const* ptrs, int B) {
+  return ilqr<double>(P, c, ptrs, B);
+}

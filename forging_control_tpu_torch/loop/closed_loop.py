@@ -9,6 +9,12 @@ command, reference, forging force, noise and solver diagnostics.  The
 after the first is one replay of a CUDA graph of the period (:mod:`.graph`),
 the counterpart of the scan body that XLA compiles once.
 
+On a card the plant's side of a period is one launch of kernel K4
+(:mod:`..ops.plant`) and the AL-iLQR controller's solve one launch of
+kernel K5 (:mod:`..ops.ilqr`), so a captured AL-iLQR period is a few
+launches; a loop that autograd records through (plant-in-loop training)
+keeps the plain plant.
+
 Every controller steps the whole batch (``step_batch``); the port has no
 per-scenario vmap path.  Noise comes from an explicit ``torch.Generator``,
 or pre-drawn arrays passed in (the JAX loop's per-step ``jax.random.split``
@@ -37,7 +43,7 @@ import torch
 
 from .. import dual as ad
 from ..device import resolve_device
-from ..integrate.rk4 import rk4_step
+from ..ops import plant
 from ..physics import press
 from ..solver import riccati, sqp
 from . import graph as graph_mod
@@ -86,8 +92,11 @@ class MPCController:
     """MPC with shift warm start over the whole batch.
 
     ``backend``: "sqp" (condensed GN-SQP), "ilqr" (Riccati sweep) or
-    "auto" (:func:`resolve_backend`).  ``linsolve`` picks the SQP's damped
-    normal solve: "kernel" (the CUDA kernel on a card) or "plain"."""
+    "auto" (:func:`resolve_backend`).  ``linsolve`` picks the kernel or
+    its plain reference on a card: for the SQP its damped normal solve
+    ("kernel": B1), for the AL-iLQR its whole solve ("kernel": K5,
+    ``riccati.solve_batch``'s ``solver``); "plain" runs the tensor code.
+    On the CPU both run the tensor code."""
 
     cfg: sqp.MPCConfig
     backend: str = "sqp"
@@ -113,7 +122,8 @@ class MPCController:
         mod = self._mod()
         shifted = mod.shift_state(carry)
         if self.backend == "ilqr":
-            return riccati.solve_batch(self.cfg, x_meas, ref, u_prev, shifted)
+            return riccati.solve_batch(self.cfg, x_meas, ref, u_prev, shifted,
+                                       solver=self.linsolve)
         return sqp.solve_batch(self.cfg, x_meas, ref, u_prev, shifted,
                                linsolve=self.linsolve)
 
@@ -170,22 +180,6 @@ def draw_noise(loop_cfg: LoopConfig, generator: torch.Generator, B: int,
                  for out, std in zip(draws, stds))
 
 
-def _plant_step(loop_cfg: LoopConfig, x_true, u, w, v):
-    """One control period of the plant: RK4 of f(x, u) + w from the true
-    state (clamped if the config says so), then the measurement + v.
-    Returns (x_next, x_meas_next)."""
-    def f(x, uu):
-        return press.rhs(x, uu, loop_cfg.params, loop_cfg.variant)
-
-    x_next = rk4_step(f, x_true, u, loop_cfg.dt, loop_cfg.substeps,
-                      disturbance=w)
-    if loop_cfg.state_clip is not None:
-        lim = ad.constants(loop_cfg.state_clip, x_next.dtype, x_next.device)
-        x_next = ad.clip(torch.nan_to_num(x_next), -lim, lim)
-    return x_next, press.measure(x_next, loop_cfg.params,
-                                 loop_cfg.variant) + v
-
-
 class StepperCarry(NamedTuple):
     """State of a single-stream stepper between calls (B = 1), and of
     :func:`run_batch`'s loop."""
@@ -198,24 +192,25 @@ class StepperCarry(NamedTuple):
 
 def _step(loop_cfg: LoopConfig, controller, carry, ref, w, v):
     """One control period from ``carry`` (a :class:`StepperCarry`): the
-    controller's ``step_batch``, then :func:`_plant_step`.  Returns (the
-    next carry, the solver diagnostics)."""
+    controller's ``step_batch``, then the plant
+    (``ops.plant.plant_step``: kernel K4 on a card unless autograd records
+    through the step).  Returns (the next carry, the solver diagnostics,
+    the forging force at the carry's measured state)."""
     u0, ctrl, diag = controller.step_batch(carry.ctrl, carry.x_meas, ref,
                                            carry.u_prev)
     u0 = u0.to(carry.x_true.dtype)
-    x_next, x_meas = _plant_step(loop_cfg, carry.x_true, u0, w, v)
-    return StepperCarry(x_next, x_meas, ctrl, u0), diag
+    x_next, x_meas, Fd = plant.plant_step(loop_cfg, carry.x_true,
+                                          carry.x_meas, u0, w, v)
+    return StepperCarry(x_next, x_meas, ctrl, u0), diag, Fd
 
 
 def _period(loop_cfg: LoopConfig, controller, carry, inputs):
     """One iteration of :func:`run_batch`'s loop, the body that a CUDA
-    graph captures: the forging force at the measured state, then
-    :func:`_step`.  ``inputs`` = (ref (B,), w (B, 5), v (B, 5)).  Returns
-    (the next carry, (x_meas, u, Fd, diag))."""
+    graph captures: :func:`_step`, with the forging force at the measured
+    state it starts from.  ``inputs`` = (ref (B,), w (B, 5), v (B, 5)).
+    Returns (the next carry, (x_meas, u, Fd, diag))."""
     ref, w, v = inputs
-    Fd = press.forging_force(carry.x_meas[:, 0], carry.x_meas[:, 1],
-                             loop_cfg.params)
-    carry, diag = _step(loop_cfg, controller, carry, ref, w, v)
+    carry, diag, Fd = _step(loop_cfg, controller, carry, ref, w, v)
     return carry, (carry.x_meas, carry.u_prev, Fd, diag)
 
 
@@ -433,7 +428,7 @@ def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
         ref = torch.as_tensor(ref, device=device).to(dtype).reshape(1)
         w = noise(loop_cfg.process_std, process_noise, "process")
         v = noise(loop_cfg.meas_std, meas_noise, "measurement")
-        carry, _ = _step(loop_cfg, controller, carry, ref, w, v)
+        carry, _, _ = _step(loop_cfg, controller, carry, ref, w, v)
         return carry, carry.u_prev[0]
 
     return step, carry0
@@ -546,9 +541,9 @@ def native_mpc_latency(loop_cfg: LoopConfig, mpc_cfg, refs, *,
             times[t - 1] = dt_s
         w = rng.normal(size=5) * p_std
         v = rng.normal(size=5) * m_std
-        x, x_meas_t = _plant_step(
-            loop_cfg, x, torch.tensor([u], dtype=torch.float64),
-            torch.from_numpy(w)[None], 0.0)
+        x, x_meas_t, _ = plant.plant_step_torch(
+            loop_cfg, x, x, torch.tensor([u], dtype=torch.float64),
+            torch.from_numpy(w)[None], None)
         x_meas = x_meas_t[0].numpy() + v
         xs[t] = x_meas
         us[t] = u

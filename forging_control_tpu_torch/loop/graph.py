@@ -90,9 +90,9 @@ def copy_into(dst, src) -> None:
 
 def _counted():
     """The kernel wrappers whose ``launches`` the runs are held to."""
-    from ..ops import lstm, probe, smallchol
+    from ..ops import ilqr, lstm, plant, probe, smallchol
     return (smallchol.chol_solve_cuda, lstm.lstm_forward_cuda,
-            probe.probe_cuda)
+            probe.probe_cuda, plant.plant_step_cuda, ilqr.ilqr_cuda)
 
 
 def _counts() -> dict:

@@ -532,7 +532,9 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     the student visits, but its command is not applied (``beta=0``; beta > 0
     blends it into the applied command).  The loop runs in ``dtype`` on the
     device of ``params``; on a card every damped normal solve of the SQP
-    teacher is a launch of kernel B1, ``gn_iters x al_iters`` per step, and
+    teacher is a launch of kernel B1, ``gn_iters x al_iters`` per step (an
+    AL-iLQR teacher's whole solve one launch of kernel K5), the plant step
+    one launch of kernel K4, and
     every step after the first is one replay of a CUDA graph of the step
     (``loop.graph``; ``graph`` as in :func:`train_supervised`).  Process
     noise: ``process_noise`` (B, T, 5, already
@@ -542,9 +544,9 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     Returns ``(feats (B, T, 3), u_teacher (B, T))`` in raw physical units
     (features [y_dot, z, ref], the supervised controller inputs).
     """
-    from ..integrate.rk4 import rk4_step
     from ..loop import closed_loop as cl
     from ..loop import graph as graph_mod
+    from ..ops import plant
 
     device = params["w_in"].device
     refs = torch.as_tensor(refs).to(device, dtype)
@@ -556,9 +558,6 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
     if process_noise is not None:
         process_noise = torch.as_tensor(process_noise).to(device, dtype)
 
-    def f(x, u):
-        return cl.press.rhs(x, u, loop_cfg.params, loop_cfg.variant)
-
     def measure(x):
         return cl.press.measure(x, loop_cfg.params, loop_cfg.variant)
 
@@ -568,10 +567,10 @@ def dagger_rollout(params, in_scaler, u_scaler, mpc_cfg, refs, *,
         u_teach, carry, _ = teacher.step_batch(carry, x_meas, ref, u_prev)
         u_stud = policy(x_meas, ref, u_prev).to(dtype)
         u0 = (1.0 - beta) * u_stud + beta * u_teach.to(dtype)
-        x_next = rk4_step(f, x_true, u0, loop_cfg.dt, loop_cfg.substeps,
-                          disturbance=w)
+        x_next, x_meas_next, _ = plant.plant_step(loop_cfg, x_true, x_meas,
+                                                  u0, w, None)
         feats = torch.stack([x_meas[:, 1], x_meas[:, 4], ref], dim=-1)
-        return (x_next, measure(x_next), u0, carry), (feats, u_teach)
+        return (x_next, x_meas_next, u0, carry), (feats, u_teach)
 
     def inputs(t):
         return refs[:, t], cl._noise(loop_cfg.process_std, process_noise, t,

@@ -2,9 +2,16 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and is compiled,
 at first use, into ``build/torch_kernels/<name>-<hash>.so`` beside the
-package (a directory that ``.gitignore`` lists).  The hash covers the source
-and the flags, so an edited source is rebuilt.  Nothing here runs at import
-time, and nothing falls back: a missing ``nvcc`` or a failed compile raises.
+package (a directory that ``.gitignore`` lists).  The hash covers the source,
+the headers of ``csrc/`` (``*.cuh``, ``*.h``) and the flags, so an edited
+source is rebuilt.
+Nothing here runs at import time, and nothing falls back: a missing ``nvcc``
+or a failed compile raises.
+
+:func:`build_host` compiles ``csrc/host_bodies.cpp`` with ``g++``: the
+per-scenario bodies of kernels K4 and K5 on the CPU, for the tests, and
+the count of the operations they need (``ops.opcount``, for the kernels'
+bounds).  No path of the port loads it.
 """
 
 from __future__ import annotations
@@ -28,6 +35,14 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# Flags of one source beyond NVCC_FLAGS.  K4 and K5 follow their plain
+# versions operation for operation, and those round every multiply and add
+# on their own: without contraction K4 equals the plain plant bit for bit
+# on the card, and K5's physics rounds as the plain solve's does
+# (csrc/plant.cu, csrc/ilqr.cu).
+EXTRA_FLAGS = {"plant": ("--fmad=false",), "ilqr": ("--fmad=false",)}
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+              "-pthread")
 
 
 @dataclasses.dataclass
@@ -57,10 +72,21 @@ def nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def _digest(src: Path, flags) -> str:
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    for header in sorted([*SOURCE_DIR.glob("*.cuh"),
+                          *SOURCE_DIR.glob("*.h")]):
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return src, BUILD_DIR / f"{name}-{_digest(src, _flags(name))}.so"
 
 
 def build_all(names) -> dict[str, Built]:
@@ -75,7 +101,7 @@ def build_all(names) -> dict[str, Built]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         pending.append((name, out, tmp, proc, time.perf_counter()))
@@ -102,6 +128,43 @@ def build_all(names) -> dict[str, Built]:
     return {n: _loaded[n] for n in names}
 
 
+def build_host() -> ctypes.CDLL:
+    """``csrc/host_bodies.cpp`` compiled with ``g++`` (``HOST_FLAGS``) into
+    ``build/torch_kernels/host_bodies-<hash>.so`` and loaded: the bodies of
+    kernels K4 and K5 on the CPU, with their C interface less the stream.
+    For the tests and the operation counts (``ops.opcount``); raises if
+    ``g++`` is missing or the compile fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host build of the kernels' "
+                           "bodies needs it")
+    src = SOURCE_DIR / "host_bodies.cpp"
+    out = BUILD_DIR / f"host_bodies-{_digest(src, HOST_FLAGS)}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed for host_bodies.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def on_card(device: torch.device) -> bool:
+    """Whether a wrapper's dispatch takes its kernel for tensors on
+    ``device``: True on a card, False on the CPU (the plain version);
+    any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {device}: the port runs on CUDA "
+                     f"or the CPU")
+
+
 def load(name: str) -> Built:
     """The built library for ``csrc/<name>.cu``, compiling it if needed."""
     if name not in _loaded:
@@ -118,6 +181,23 @@ def entry(name: str, symbol: str, argtypes: tuple):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_runs(name: str, reset: bool = False) -> int:
+    """How often the kernel of ``csrc/<name>.cu`` ran on the current card
+    since its library was loaded (or last reset), as the kernel counts
+    itself (``fct_<name>_runs``: its first thread adds one per launch).
+    Unlike a wrapper's ``launches``, which counts the launches the host
+    made or captured, this shows that a replayed graph's node ran.  With
+    ``reset`` the count starts again from 0.  Synchronises the card."""
+    fn = entry(name, f"fct_{name}_runs",
+               (ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int))
+    out = ctypes.c_ulonglong(0)
+    rc = fn(ctypes.byref(out), int(reset))
+    if rc != 0:
+        raise RuntimeError(f"reading {name}'s run count failed: CUDA error "
+                           f"{rc}")
+    return out.value
 
 
 def current_stream_handle(index: int) -> int:

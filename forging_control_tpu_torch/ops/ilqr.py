@@ -1,0 +1,192 @@
+"""The whole AL-iLQR solve — kernel K5.
+
+Wrapper of the hand-written CUDA kernel ``csrc/ilqr.cu``: one launch runs
+:func:`forging_control_tpu_torch.solver.riccati.solve_batch`'s rounds for
+every scenario, one thread per scenario (the body is ``csrc/bodies.cuh``
+``ilqr_body`` on the device physics of ``csrc/press_dual.cuh``).  It is the
+counterpart of the JAX package's compiled ``riccati.solve_batch``
+(``forging_control_tpu/solver/riccati.py:148-359``), whose scans XLA
+compiles into one program; the JAX package has no Pallas kernel for it.
+
+The plain version is the tensor code of ``solver/riccati.py``, which also
+dispatches (:func:`~forging_control_tpu_torch.solver.riccati.solve_batch`,
+``solver="kernel"`` or ``"plain"``) and runs the active-set polish after
+the kernel where the configuration asks for it.
+
+:func:`ilqr_cuda` checks its inputs, allocates every output and the
+scratch, takes the configuration's scalars as kernel arguments (so a
+captured control period makes no tensor from host data and reads nothing
+back), launches on the current stream and counts its launches in
+``ilqr_cuda.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import build
+from ..physics.scaling import U_SCALE
+from .plant import VARIANTS, press_params_c
+
+MAX_N = 25
+
+
+class IlqrCfgC(ctypes.Structure):
+    """``fct::IlqrCfg`` of ``csrc/bodies.cuh``."""
+
+    _fields_ = [("dt", ctypes.c_double), ("substeps", ctypes.c_int),
+                ("variant", ctypes.c_int), ("N", ctypes.c_int),
+                ("nc", ctypes.c_int), ("gn_iters", ctypes.c_int),
+                ("al_iters", ctypes.c_int), ("record_trace", ctypes.c_int)] \
+        + [(name, ctypes.c_double) for name in (
+            "sqrt_rterm", "rterm", "p_scale", "p_lo", "p_hi", "mu0",
+            "mu_factor", "tol_grad", "lm_reg", "u_scale")] \
+        + [("alphas", ctypes.c_double * 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def ilqr_cfg_c(cfg, N: int, nc: int, p_scale: float,
+               alphas: tuple) -> IlqrCfgC:
+    """The kernel's view of an ``MPCConfig`` at horizon N, with the
+    solver's constants: nc constraints a stage, the pressure scale and the
+    line search's step ladder.  Each derived constant is computed as
+    ``solver/riccati.py`` computes it in Python (cached, so the structure
+    outlives every launch that points to it)."""
+    if cfg.variant not in VARIANTS:
+        raise ValueError(f"unknown variant: {cfg.variant!r}")
+    return IlqrCfgC(
+        dt=cfg.dt, substeps=cfg.substeps, variant=VARIANTS[cfg.variant],
+        N=N, nc=nc, gn_iters=cfg.gn_iters, al_iters=cfg.al_iters,
+        record_trace=int(bool(cfg.record_trace)),
+        sqrt_rterm=math.sqrt(cfg.rterm), rterm=cfg.rterm,
+        p_scale=p_scale, p_lo=cfg.p_min / p_scale,
+        p_hi=0.0 if cfg.p_max is None else cfg.p_max / p_scale,
+        mu0=cfg.mu0, mu_factor=cfg.mu_factor, tol_grad=cfg.tol_grad,
+        lm_reg=cfg.lm_reg, u_scale=U_SCALE,
+        alphas=(ctypes.c_double * 4)(*alphas))
+
+
+class Solved(NamedTuple):
+    """The kernel's outputs, (B, ...) each: the first command (physical
+    units), the solution and multipliers, and the ``Diagnostics`` leaves
+    (``trace`` None unless the configuration records it)."""
+
+    u0: torch.Tensor
+    v: torch.Tensor
+    lam: torch.Tensor
+    iters: torch.Tensor
+    obj: torch.Tensor
+    inf_pr: torch.Tensor
+    inf_du: torch.Tensor
+    reg: torch.Tensor
+    d_norm: torch.Tensor
+    mu: torch.Tensor
+    alpha: torch.Tensor
+    trace: torch.Tensor | None
+
+
+_SYMBOLS = {torch.float32: "fct_ilqr_f32", torch.float64: "fct_ilqr_f64"}
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p)
+
+
+def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda") -> None:
+    """Raise unless the inputs are what the kernel takes at the
+    configuration ``kcfg`` (an :class:`IlqrCfgC`): tensors on one
+    ``device_type`` device of one dtype (float32 or float64), x0 (B, 5),
+    ref and u_prev (B,), v (B, N) with N = kcfg.N and 1 <= N <= 25, lam
+    (B, N, kcfg.nc), contiguous, none requiring a gradient."""
+    named = {"x0": x0, "ref": ref, "u_prev": u_prev, "v": v, "lam": lam}
+    for k, a in named.items():
+        if not isinstance(a, torch.Tensor):
+            raise TypeError(f"ilqr_cuda: {k} must be a tensor, got "
+                            f"{type(a).__name__}")
+    if v.device.type != device_type or any(a.device != v.device
+                                           for a in named.values()):
+        raise ValueError(f"ilqr_cuda needs {device_type} tensors on one "
+                         f"device, got "
+                         f"{[str(a.device) for a in named.values()]}")
+    if v.dtype not in _SYMBOLS or any(a.dtype != v.dtype
+                                      for a in named.values()):
+        raise TypeError(f"ilqr_cuda takes float32 or float64 of one dtype, "
+                        f"got {[a.dtype for a in named.values()]}")
+    if v.dim() != 2:
+        raise ValueError(f"ilqr_cuda: v has shape {tuple(v.shape)}, "
+                         f"expected (B, N)")
+    B, N = v.shape
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"ilqr_cuda supports 1 <= N <= {MAX_N}, got N={N}")
+    if N != kcfg.N:
+        raise ValueError(f"ilqr_cuda: v has horizon {N}, the configuration "
+                         f"{kcfg.N}")
+    nc = kcfg.nc
+    want = {"x0": (B, 5), "ref": (B,), "u_prev": (B,), "v": (B, N),
+            "lam": (B, N, nc)}
+    for k, a in named.items():
+        if tuple(a.shape) != want[k]:
+            raise ValueError(f"ilqr_cuda: {k} has shape {tuple(a.shape)}, "
+                             f"expected {want[k]}")
+        if not a.is_contiguous():
+            raise ValueError(f"ilqr_cuda takes contiguous tensors ({k} is "
+                             f"not)")
+        if a.requires_grad:
+            raise RuntimeError("ilqr_cuda has no backward; pass tensors "
+                               "that do not require a gradient")
+    if kcfg.substeps < 1:
+        raise ValueError(f"substeps must be at least 1, got {kcfg.substeps}")
+
+
+def prepare(kcfg, params, x0, ref, u_prev, v, lam, scratch_fields: int):
+    """The outputs (a :class:`Solved`), allocated, and the C arguments of
+    one launch without the stream, at the configuration ``kcfg`` and the
+    press parameters ``params``; ``scratch_fields`` is the library's
+    ``fct_ilqr_scratch_fields(N)``."""
+    B, N = v.shape
+    dtype, device = v.dtype, v.device
+    like = lambda *shape: torch.empty(*shape, dtype=dtype,  # noqa: E731
+                                      device=device)
+    rounds = kcfg.al_iters * kcfg.gn_iters
+    out = Solved(
+        u0=like(B), v=torch.empty_like(v), lam=torch.empty_like(lam),
+        iters=torch.empty(B, dtype=torch.int32, device=device),
+        obj=like(B), inf_pr=like(B), inf_du=like(B), reg=like(B),
+        d_norm=like(B), mu=like(B), alpha=like(B),
+        trace=like(B, rounds, 6) if kcfg.record_trace else None)
+    scratch = like(scratch_fields * B)
+    ptrs = (ctypes.c_void_p * 18)(*(
+        None if a is None else a.data_ptr() for a in (
+            x0, ref, u_prev, v, lam, *out, scratch)))
+    args = (ctypes.addressof(press_params_c(params)),
+            ctypes.addressof(kcfg), ptrs, B)
+    return out, scratch, args
+
+
+@functools.cache
+def _scratch_fields(N: int) -> int:
+    fn = build.entry("ilqr", "fct_ilqr_scratch_fields", (ctypes.c_int,))
+    return fn(N)
+
+
+def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam) -> Solved:
+    """Kernel K5: the AL-iLQR rounds of ``solver/riccati.py`` at the
+    configuration ``kcfg`` (an :class:`IlqrCfgC`, which
+    ``riccati.kernel_cfg`` builds) and the press parameters ``params``, for
+    B scenarios from the warm start (v, lam), with the initial states x0,
+    the references and the previous commands u_prev (physical units), all
+    contiguous CUDA tensors of one dtype (see :func:`check`).  The
+    active-set polish is not the kernel's: ``riccati.solve_batch`` runs it
+    after the launch."""
+    check(kcfg, x0, ref, u_prev, v, lam)
+    fn = build.entry("ilqr", _SYMBOLS[v.dtype], _ARGTYPES)
+    out, _scratch, args = prepare(kcfg, params, x0, ref, u_prev, v, lam,
+                                  _scratch_fields(v.shape[1]))
+    build.launch("ilqr", fn, v.device, *args)
+    ilqr_cuda.launches += 1
+    return out
+
+
+ilqr_cuda.launches = 0

@@ -1,0 +1,80 @@
+"""The operations that kernels K4 and K5 need for given inputs.
+
+The kernels' per-scenario bodies (``csrc/bodies.cuh``) run on the CPU on a
+scalar that does the arithmetic and counts it (``csrc/op_count.h``, built
+into the host library by :func:`ops.build.build_host`): an operation counts
+where it needs arithmetic on a value that depends on the inputs, so
+branches not taken, structurally zero tangents and operations on constants
+cost nothing.  The count is what the operations bound of a kernel divides
+by the card's rate (``chip_smoke.py``).  The functions take the kernels'
+own inputs on the CPU and return the outputs beside the counts, which equal
+the host build's outputs bit for bit.  No path of the port calls them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+from . import build, ilqr, plant
+
+# The bodies' phases (FCT_PHASE in csrc/bodies.cuh), by kernel.
+PLANT_PHASES = ("forging force", "RK4", "clip and measurement")
+ILQR_PHASES = ("initial rollout", "stage RK4 with tangents",
+               "residuals and Gauss-Newton blocks", "backward sweep",
+               "forward sweep", "accept, AL update and diagnostics")
+
+
+@functools.cache
+def _fn(symbol: str, argtypes: tuple):
+    fn = getattr(build.build_host(), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _threads(threads):
+    return max(1, min(8, os.cpu_count() or 1)) if threads is None else threads
+
+
+def _by_phase(ops, names) -> dict:
+    return {"total": int(sum(ops)),
+            "by_phase": {n: int(ops[i]) for i, n in enumerate(names)}}
+
+
+def plant_ops(cfg, x_true, x_meas, u, w, v, threads=None):
+    """((x_next, x_meas_next, Fd), counts) of K4's body on these CPU
+    tensors (``ops.plant.plant_step_cuda``'s arguments); ``counts`` is
+    ``{"total": n, "by_phase": {...}}`` over :data:`PLANT_PHASES`."""
+    plant.check(x_true, x_meas, u, w, v, device_type="cpu")
+    outs, args = plant.prepare(cfg, x_true, x_meas, u, w, v)
+    dtype = "f32" if x_true.dtype == torch.float32 else "f64"
+    ops = (ctypes.c_ulonglong * 8)()
+    fn = _fn(f"fct_plant_ops_{dtype}",
+             plant._ARGTYPES[:-1]
+             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)))
+    if fn(*args, _threads(threads), ops) != 0:
+        raise ValueError("fct_plant_ops refused its arguments")
+    return outs, _by_phase(ops, PLANT_PHASES)
+
+
+def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None):
+    """(outputs, counts) of K5's body on these CPU tensors
+    (``ops.ilqr.ilqr_cuda``'s arguments): the outputs an
+    :class:`ops.ilqr.Solved`, ``counts`` ``{"total": n, "by_phase":
+    {...}}`` over :data:`ILQR_PHASES`."""
+    ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu")
+    fields = build.build_host().fct_ilqr_scratch_fields(v.shape[1])
+    out, _scratch, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
+                                       fields)
+    dtype = "f32" if v.dtype == torch.float32 else "f64"
+    ops = (ctypes.c_ulonglong * 8)()
+    fn = _fn(f"fct_ilqr_ops_{dtype}",
+             ilqr._ARGTYPES[:-1]
+             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)))
+    if fn(*args, _threads(threads), ops) != 0:
+        raise ValueError("fct_ilqr_ops refused its arguments")
+    return out, _by_phase(ops, ILQR_PHASES)

@@ -8,11 +8,17 @@ LQR backward sweep over 6x6 blocks: augmented state ``z = [x (5), w]`` with
 an augmented Lagrangian for the pressure bounds, a 4-alpha forward line
 search and per-scenario convergence masking.
 
-Every stage is linearised in one forward-mode sweep with 7 tangents
-(:func:`~forging_control_tpu_torch.dual.linearize`); the horizon loops are
-Python loops, the backward sweep a reversed one.  This backend has no
-hand-written kernel: its block algebra is ``torch.einsum``, as the JAX
-package leaves it to XLA.
+Two implementations, chosen by :func:`solve_batch`'s ``solver``:
+
+* ``"kernel"`` (the default) — on a card, the whole solve is one launch of
+  the hand-written CUDA kernel K5 (:func:`~forging_control_tpu_torch.ops.
+  ilqr.ilqr_cuda`), the counterpart of the XLA program that the JAX package
+  compiles from its scans; on the CPU the plain version;
+* ``"plain"`` — the tensor code below on any device, the kernel's
+  reference: every stage linearised in one forward-mode sweep with 7
+  tangents (:func:`~forging_control_tpu_torch.dual.linearize`), the horizon
+  loops Python loops, the backward sweep a reversed one, the block algebra
+  ``torch.einsum``.
 """
 
 from __future__ import annotations
@@ -25,12 +31,16 @@ import torch
 from .. import dual as ad
 from ..device import resolve_device
 from ..integrate.rk4 import rk4_step
+from ..ops import build
+from ..ops import ilqr as ilqr_ops
 from ..physics import press
 from ..physics.scaling import U_SCALE
 from .sqp import TRACE_COLS, Diagnostics, MPCConfig, _P_SCALE, polish  # noqa: F401
 
 # Forward line-search ladder on the feedforward term.
 _ALPHAS = (1.0, 0.5, 0.1, 0.02)
+
+SOLVERS = ("kernel", "plain")
 
 
 class ILQRState(NamedTuple):
@@ -127,7 +137,8 @@ def _arrivals(zs, zN):
     return torch.cat([zs[:, 1:, :5], zN[:, None, :5]], dim=1)
 
 
-def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
+def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState, *,
+                solver: str = "kernel"):
     """B scenarios of one MPC solve via AL-iLQR.
 
     Args:
@@ -135,15 +146,75 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
       ref: (B,) speed references (held over the horizon).
       u_prev: (B,) previously applied inputs (physical units).
       state: warm start; ``v`` (B, N), ``lam`` (B, N, nc).
+      solver: "kernel" — kernel K5 when the state lies on a card, the
+        plain version on the CPU; "plain" — the tensor code on any device.
+        Any other device raises.
 
     Returns (u0 (B,), new ILQRState, Diagnostics with (B,) leaves).
     """
-    dtype, device = state.v.dtype, state.v.device
-    B, N = state.v.shape
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; expected one of "
+                         f"{SOLVERS}")
+    if build.on_card(state.v.device) and solver == "kernel":
+        return _solve_batch_kernel(cfg, x0, ref, u_prev, state)
+    return _solve_batch_plain(cfg, x0, ref, u_prev, state)
+
+
+def _inputs(x0, ref, u_prev, B, dtype, device):
+    """x0 (B, 5), ref (B,) and u_prev (B,) as tensors of the state's dtype
+    on its device."""
     x0 = torch.as_tensor(x0, device=device).to(dtype)
     ref = torch.as_tensor(ref, device=device).to(dtype).expand(B)
-    u_prev_s = torch.as_tensor(u_prev, device=device).to(dtype).expand(B) \
-        / U_SCALE
+    u_prev = torch.as_tensor(u_prev, device=device).to(dtype).expand(B)
+    return x0, ref, u_prev
+
+
+def kernel_cfg(cfg: MPCConfig, N: int):
+    """Kernel K5's configuration (``ops.ilqr.IlqrCfgC``) for ``cfg`` at
+    horizon N, with this solver's constants."""
+    return ilqr_ops.ilqr_cfg_c(cfg, N, _nc(cfg), _P_SCALE, _ALPHAS)
+
+
+def _solve_batch_kernel(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
+    """:func:`solve_batch` through kernel K5: one launch for the rounds and
+    the diagnostics; with ``polish_iters`` the polish, the re-rollout and
+    the final diagnostics follow in tensor code, as in the JAX package."""
+    v, lam = state.v, state.lam
+    B = v.shape[0]
+    x0, ref, u_prev = _inputs(x0, ref, u_prev, B, v.dtype, v.device)
+    c = lambda a: a.contiguous()  # noqa: E731
+    out = ilqr_ops.ilqr_cuda(kernel_cfg(cfg, v.shape[1]), cfg.params, c(x0),
+                             c(ref), c(u_prev), c(v), c(lam))
+    diag = Diagnostics(iters=out.iters, obj=out.obj, inf_pr=out.inf_pr,
+                       inf_du=out.inf_du, reg=out.reg, d_norm=out.d_norm,
+                       mu=out.mu, alpha=out.alpha, trace=out.trace)
+    if cfg.polish_iters <= 0:
+        return out.u0, ILQRState(v=out.v, lam=out.lam), diag
+    u_prev_s = u_prev / U_SCALE
+    lam_flat = out.lam.transpose(1, 2).reshape(B, -1)
+    v = polish(cfg, x0, ref, u_prev_s, out.v, lam_flat)
+    zs, zN = _rollout_batch(cfg, x0, u_prev_s, v)
+    obj, inf_pr = _objective(cfg, zs, zN, v, ref)
+    return v[:, 0] * U_SCALE, ILQRState(v=v, lam=out.lam), \
+        diag._replace(obj=obj, inf_pr=inf_pr)
+
+
+def _objective(cfg: MPCConfig, zs, zN, v, ref):
+    """True (non-AL) objective and primal infeasibility of the carried
+    trajectory."""
+    cs = _constraints(cfg, _arrivals(zs, zN))
+    tr = torch.cat([zs[:, 1:, 1], zN[:, 1:2]], dim=1) - ref[:, None]
+    dv = v - zs[:, :, 5]
+    obj = torch.sum(tr * tr, dim=1) + cfg.rterm * torch.sum(dv * dv, dim=1)
+    return obj, torch.clamp_min(torch.amax(-cs, dim=(1, 2)), 0.0)
+
+
+def _solve_batch_plain(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
+    """:func:`solve_batch` in tensor code (``solver="plain"``)."""
+    dtype, device = state.v.dtype, state.v.device
+    B, N = state.v.shape
+    x0, ref, u_prev = _inputs(x0, ref, u_prev, B, dtype, device)
+    u_prev_s = u_prev / U_SCALE
     alphas = ad.constants(_ALPHAS, dtype, device)
     A_n = len(_ALPHAS)
     mask0 = _res_mask(cfg, dtype, device)
@@ -290,15 +361,11 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: ILQRState):
         v = polish(cfg, x0, ref, u_prev_s, v, lam_flat)
         zs, zN = _rollout_batch(cfg, x0, u_prev_s, v)
 
-    cs = _constraints(cfg, _arrivals(zs, zN))
-    # True (non-AL) objective from the carried trajectory.
-    tr = torch.cat([zs[:, 1:, 1], zN[:, 1:2]], dim=1) - ref[:, None]
-    dv = v - zs[:, :, 5]
-    obj = torch.sum(tr * tr, dim=1) + cfg.rterm * torch.sum(dv * dv, dim=1)
+    obj, inf_pr = _objective(cfg, zs, zN, v, ref)
     diag = Diagnostics(
         iters=iters,
         obj=obj,
-        inf_pr=torch.clamp_min(torch.amax(-cs, dim=(1, 2)), 0.0),
+        inf_pr=inf_pr,
         inf_du=inf_du,
         reg=torch.full((B,), cfg.lm_reg, dtype=dtype, device=device),
         d_norm=d_norm,

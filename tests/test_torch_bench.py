@@ -26,26 +26,33 @@ def test_torch_run_bench_record_on_cpu():
     assert rec["metric"] == "closed-loop MPC solves/s/CPU run (N=5, batch=3)"
     assert rec["value"] > 0 and rec["steps"] == 1
     assert rec["device"] == {"name": "cpu", "power_limit": None}
-    # On the CPU the dispatcher takes the plain solve: no kernel launch.
-    assert rec["chol_kernel_launches"] == 0
+    # On the CPU every dispatcher takes the plain version: no launch.
+    none = {"chol_solve": 0, "ilqr": 0, "plant": 0}
+    assert rec["kernels"] == ["chol_solve", "plant"]
+    assert rec["kernel_launches"] == none
     assert rec["backend"] == "sqp" and rec["linsolve"] == "kernel"
-    # The check ran first: on the CPU both paths take the plain solve.
-    assert rec["kernel_check"] == {"batch": 64, "steps": 1, "max_abs_du": 0.0,
-                                   "tolerance": 1e-4,
-                                   "chol_kernel_launches": 0}
+    # The check ran first: on the CPU both paths take the plain versions.
+    assert rec["kernel_check"] == {"batch": 64, "steps": 1, "backend": "sqp",
+                                   "max_abs_du": 0.0, "tolerance": 1e-4,
+                                   "kernel_launches": none}
     json.dumps(rec)
+    rec = bench.run_bench(5, 3, 1, 1, "fast_5x1", "ilqr", device="cpu")
+    assert rec["kernels"] == ["ilqr", "plant"]
+    assert rec["kernel_check"]["backend"] == "ilqr"
+    assert rec["kernel_check"]["max_abs_du"] == 0.0
     with pytest.raises(ValueError, match="card"):
         bench.profile_run(5, 3, 1, "fast_5x1", "sqp", device="cpu")
 
 
 def test_torch_run_bench_refuses_to_time_a_wrong_kernel(monkeypatch):
-    """``run_bench`` on the SQP's kernel solve refuses to time when the
-    kernel path's solve is off: here the solve that ``linsolve="kernel"``
+    """``run_bench`` through the kernels refuses to time when the kernel
+    path is off: here the solve that the SQP's ``linsolve="kernel"``
     dispatches to is perturbed by 10 %, which moves the B = 64 step's
-    commands past 1e-4; nothing is timed.  The iLQR backend has no kernel
-    and skips the check."""
+    commands past 1e-4; nothing is timed.  The same for the AL-iLQR's
+    kernel path (its solve's commands perturbed); through the plain
+    versions (``linsolve="plain"``) nothing is checked."""
     from forging_control_tpu_torch.ops import smallchol
-    from forging_control_tpu_torch.solver import sqp
+    from forging_control_tpu_torch.solver import riccati, sqp
 
     monkeypatch.setattr(sqp, "chol_solve", lambda H, g: 1.1 * smallchol
                         .chol_solve_torch(H, g))
@@ -57,7 +64,21 @@ def test_torch_run_bench_refuses_to_time_a_wrong_kernel(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel check failed"):
         bench.kernel_check(5, "fast_5x1", device="cpu")
     monkeypatch.undo()
-    rec = bench.run_bench(5, 3, 1, 1, "fast_5x1", "ilqr", device="cpu")
+    solve = riccati._solve_batch_plain
+
+    def off(*a):
+        u, st, d = solve(*a)
+        return 1.1 * u, st, d
+
+    monkeypatch.setattr(riccati, "solve_batch", lambda *a, solver="kernel":
+                        (off if solver == "kernel" else solve)(*a))
+    monkeypatch.setattr(bench, "_runner", lambda *a: timed.append(a))
+    with pytest.raises(RuntimeError, match="ilqr kernel and plain"):
+        bench.run_bench(5, 3, 1, 1, "fast_5x1", "ilqr", device="cpu")
+    assert timed == []
+    monkeypatch.undo()
+    rec = bench.run_bench(5, 3, 1, 1, "fast_5x1", "ilqr", device="cpu",
+                          linsolve="plain")
     assert rec["kernel_check"] is None
 
 
@@ -87,3 +108,17 @@ def test_torch_device_busy_unions_kernel_intervals():
     assert abs(rec["device_busy_share"] - 0.3) < 1e-9
     assert rec["top_kernels"][0]["name"] == "a"
     assert rec["top_kernels"][0]["count"] == 2
+
+
+def test_torch_bench_far_share_counts_scenarios():
+    """The AL-iLQR check's float64 rule counts scenarios (the leading axis)
+    that part by more than the tolerance anywhere."""
+    import torch
+
+    a = torch.zeros(4, 3)
+    b = a.clone()
+    b[1, 2], b[3, 0], b[3, 1] = 2e-4, -5e-4, 1e-3
+    b[2, 0] = 5e-5
+    assert bench.far_share(a, b, 1e-4) == 0.5
+    assert bench.far_share(a[:, 0], b[:, 0], 1e-4) == 0.25
+    assert bench.far_share(a, a, 0.0) == 0.0

@@ -23,11 +23,13 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torch_host_kernels as hk
 from forging_control_tpu.loop import closed_loop as jcl
 from forging_control_tpu.solver import sqp as jsqp
 from forging_control_tpu_torch.loop import closed_loop as cl
 from forging_control_tpu_torch.loop import graph
 from forging_control_tpu_torch.nn import fnn
+from forging_control_tpu_torch.ops import plant
 from forging_control_tpu_torch.physics import press
 from forging_control_tpu_torch.solver import feasibility as feas
 from forging_control_tpu_torch.solver import sqp
@@ -103,7 +105,7 @@ def test_torch_period_makes_no_host_tensor_and_never_syncs(kind):
         x = _start(cl.FunctionController(None), B, f32, loop_cfg).x_true
 
         def period():
-            return cl._plant_step(loop_cfg, x, ref, w, w)
+            return plant.plant_step(loop_cfg, x, x, ref, w, w)
     else:
         loop_cfg = cl.LoopConfig(variant="smooth")
         ctrl = _controllers()[kind]
@@ -117,6 +119,52 @@ def test_torch_period_makes_no_host_tensor_and_never_syncs(kind):
     with counter:
         period()
     assert dict(counter.found) == {}
+
+
+@pytest.mark.parametrize("kind", ["ilqr", "fnn", "plant"])
+def test_torch_kernel_period_makes_no_host_tensor_and_never_syncs(
+        kind, monkeypatch):
+    """The check above with the dispatch taking the kernels, as on a card:
+    the AL-iLQR solve through K5 and every plant step through K4 (their
+    bodies run on the CPU from the host library, through the wrappers'
+    own checks, allocations and argument packing).  No host-data tensor,
+    no scalar read, no nonzero; one launch of each kernel a period."""
+    counts = hk.route_kernels_to_host(monkeypatch)
+    B, f32 = 4, torch.float32
+    ref = torch.full((B,), 0.3)
+    w = torch.full((B, 5), 1e-3)
+    if kind == "plant":
+        loop_cfg = cl.LoopConfig(variant="smooth",
+                                 state_clip=(1.0, 10.0, 1e9, 1e9, 1.0))
+        x = _start(cl.FunctionController(None), B, f32, loop_cfg).x_true
+
+        def period():
+            return plant.plant_step(loop_cfg, x, x, ref, w, w)
+    else:
+        loop_cfg = cl.LoopConfig(variant="smooth")
+        ctrl = _controllers()[kind]
+        carry = _start(ctrl, B, f32, loop_cfg)
+        body = functools.partial(cl._period, loop_cfg, ctrl)
+
+        def period():
+            return body(carry, (ref, w, w))
+    period()                                  # warm-up (weight caches)
+    counter = _SyncCounter()
+    with counter:
+        period()
+    assert dict(counter.found) == {}
+    assert counts == {"plant": 2, "ilqr": 2 if kind == "ilqr" else 0}
+
+
+def test_torch_kernel_static_period_equals_eager_run_batch(monkeypatch):
+    """The AL-iLQR period through both kernels (bodies on the CPU), called
+    on its static buffers, equals the eager run_batch through them bitwise;
+    each kernel launched once a period in either."""
+    counts = hk.route_kernels_to_host(monkeypatch)
+    (x_e, tel_e), (x_s, xs, us, Fds) = _eager_and_static("ilqr", "pre-drawn")
+    assert counts == {"plant": 10, "ilqr": 10}
+    assert torch.equal(us, tel_e.u) and torch.equal(xs, tel_e.x)
+    assert torch.equal(Fds, tel_e.Fd) and torch.equal(x_s, x_e)
 
 
 def _eager_and_static(kind, noise, T=5, B=3):

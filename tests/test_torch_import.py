@@ -25,12 +25,13 @@ from forging_control_tpu_torch.loop import closed_loop, graph
 from forging_control_tpu_torch.nn import (datasets, fnn, lstm, mpc_loss,
                                           optim, scalers, surrogate_eval,
                                           torch_compat, train)
-from forging_control_tpu_torch.ops import build, lstm, probe, smallchol
+from forging_control_tpu_torch.ops import (build, ilqr, lstm, plant, probe,
+                                           smallchol)
 from forging_control_tpu_torch.pipelines import (config, generate_data,
                                                  supervised, surrogate,
                                                  unsupervised)
 from forging_control_tpu_torch.parallel import launcher, mesh
-from forging_control_tpu_torch.solver import feasibility
+from forging_control_tpu_torch.solver import feasibility, riccati
 from forging_control_tpu_torch.utils import (checkpoint, dompc_pickle,
                                              logging, notify, profiling,
                                              progress, timer)

@@ -1,6 +1,7 @@
-"""Kernels B1 (small Cholesky solve), B2 (LSTM forward) and B3 (toolchain
-probe) against their plain PyTorch versions on a card (``gpu`` marker;
-skips without one).
+"""Kernels B1 (small Cholesky solve), B2 (LSTM forward), B3 (toolchain
+probe), K4 (the closed loop's plant step) and K5 (the whole AL-iLQR solve)
+against their plain PyTorch versions on a card (``gpu`` marker; skips
+without one).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports jax, so run it
@@ -13,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from forging_control_tpu_torch.loop import closed_loop as cl
 from forging_control_tpu_torch.nn import lstm
+from forging_control_tpu_torch.ops import ilqr, plant, probe, smallchol
 from forging_control_tpu_torch.ops import lstm as lstm_ops
-from forging_control_tpu_torch.ops import probe, smallchol
+from forging_control_tpu_torch.physics import press
+from forging_control_tpu_torch.solver import riccati
 
 
 def _need_card():
@@ -233,3 +237,121 @@ def test_torch_mpc_loss_on_gpu_matches_cpu():
     for a, b in zip(run("cuda"), run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-13)
     assert lstm_ops.lstm_forward_cuda.launches == before
+
+
+def _plant_inputs(rng, B, dtype, clip):
+    lo = np.array([-0.02, -0.9, -3e6, -3e6, -0.25])
+    hi = np.array([0.15, 0.9, 3.5e7, 3.5e7, 0.25])
+    x = lo + (hi - lo) * rng.rand(B, 5)
+    P = press.DEFAULT_PARAMS
+    x[0] = press.X0_REFERENCE                        # the gate, y = 0
+    x[1] = (0.03, 0.0, 8e6, 4e6, 0.05)               # the gate's tie
+    x[2] = (0.03, 0.2, P.PS - P.eps_q / 2, 4e6, 0.05)  # the orifice's kink
+    if clip:
+        x[3, 2], x[4, 3] = np.nan, np.inf
+    std = np.array([5e-4, 2e-3, 5e4, 5e4, 2e-3])
+    out = (x, x + rng.randn(B, 5) * std / 50, rng.uniform(-0.25, 0.25, B),
+           rng.randn(B, 5) * std, rng.randn(B, 5) * std / 50)
+    return [torch.from_numpy(a).to("cuda", dtype).contiguous() for a in out]
+
+
+@pytest.mark.gpu
+def test_torch_plant_kernel_matches_plain_on_gpu():
+    """K4 vs its plain version: the three variants, noise, the state clip
+    with NaN and inf states, the gate and the kink; float64 within 1e-9
+    and float32 within 1e-4 of each value's magnitude (bitwise so far:
+    both round every operation alike); the wrapper's checks."""
+    _need_card()
+    rng = np.random.RandomState(7)
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        for variant in ("raw", "smooth", "clamp"):
+            for clip in (None, (0.12, 0.6, 3.3e7, 3.3e7, 0.2)):
+                cfg = cl.LoopConfig(variant=variant, state_clip=clip)
+                t = _plant_inputs(rng, 37, dtype, clip is not None)
+                got = plant.plant_step_cuda(cfg, *t)
+                want = plant.plant_step_torch(cfg, *t)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.isfinite(g).all()
+                    assert ((g - w).abs() / (1 + w.abs())).max() <= tol
+    x, xm, u, w, v = _plant_inputs(rng, 8, torch.float64, False)
+    cfg = cl.LoopConfig()
+    with pytest.raises(ValueError, match="cuda tensors"):
+        plant.plant_step_cuda(cfg, x.cpu(), xm.cpu(), u.cpu(), None, None)
+    with pytest.raises(TypeError):
+        plant.plant_step_cuda(cfg, x.float(), xm, u, w, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        plant.plant_step_cuda(cfg, x, xm, u, w.t().contiguous().t(), v)
+    with pytest.raises(RuntimeError, match="backward"):
+        plant.plant_step_cuda(cfg, x, xm, u.requires_grad_(), w, v)
+
+
+@pytest.mark.gpu
+def test_torch_ilqr_kernel_matches_plain_on_gpu():
+    """K5 (riccati.solve_batch through the kernel) vs the plain AL-iLQR on
+    the card from the closed loop's cold start: N = 5 and 10, B = 37 and
+    300, p_max None and 32e6, the trace; float64 u0, v and lam within 1e-9,
+    float32 commands within 1e-4 (where they are not, the message says
+    which scenarios and whether they accepted another step); the
+    wrapper's checks."""
+    _need_card()
+    rng = np.random.RandomState(8)
+    for N, B, p_max, trace in ((5, 37, None, True), (10, 300, 32e6, False),
+                               (10, 37, None, False)):
+        cfg = riccati.MPCConfig.fast(horizon=N, gn_iters=5, variant="smooth",
+                                     p_max=p_max, record_trace=trace)
+        for dtype in (torch.float64, torch.float32):
+            x0 = torch.tensor(press.X0_REFERENCE, dtype=dtype,
+                              device="cuda").repeat(B, 1)
+            ref = torch.from_numpy(rng.uniform(-0.9, 0.6, B)).to("cuda",
+                                                                 dtype)
+            up = torch.zeros(B, dtype=dtype, device="cuda")
+            nc = 2 if p_max is None else 4
+            st = riccati.ILQRState(
+                torch.zeros(B, N, dtype=dtype, device="cuda"),
+                torch.zeros(B, N, nc, dtype=dtype, device="cuda"))
+            uk, sk, dk = riccati.solve_batch(cfg, x0, ref, up, st)
+            up_, sp, dp = riccati.solve_batch(cfg, x0, ref, up, st,
+                                              solver="plain")
+            torch.cuda.synchronize()
+            assert torch.isfinite(uk).all()
+            if dtype == torch.float64:
+                for a, b in ((uk, up_), (sk.v, sp.v), (sk.lam, sp.lam)):
+                    assert (a - b).abs().max() <= 1e-9
+                torch.testing.assert_close(dk.obj, dp.obj, rtol=1e-9,
+                                           atol=1e-12)
+                assert torch.equal(dk.iters, dp.iters)
+                if trace:
+                    assert dk.trace.shape == (B, cfg.al_iters * cfg.gn_iters,
+                                              6)
+                    torch.testing.assert_close(dk.trace, dp.trace, rtol=1e-7,
+                                               atol=1e-12)
+            else:
+                du = (uk - up_).abs()
+                flips = (dk.alpha != dp.alpha) if dk.trace is None else \
+                    (dk.trace[..., 4] != dp.trace[..., 4]).any(1)
+                assert du.max() <= 1e-4, (
+                    f"N={N} B={B}: float32 max |du| {float(du.max()):.3e} "
+                    f"at scenario {int(du.argmax())}, ref "
+                    f"{float(ref[du.argmax()]):.6f}; scenarios beyond 1e-4 "
+                    f"{int((du > 1e-4).sum())}, of which accepted another "
+                    f"alpha {int((flips & (du > 1e-4)).sum())}; iters "
+                    f"kernel {dk.iters[du > 1e-4].tolist()} plain "
+                    f"{dp.iters[du > 1e-4].tolist()}")
+    v = torch.zeros(4, 26, dtype=torch.float64, device="cuda")
+    lam = torch.zeros(4, 26, 2, dtype=torch.float64, device="cuda")
+    x0 = torch.zeros(4, 5, dtype=torch.float64, device="cuda")
+    ref = torch.zeros(4, dtype=torch.float64, device="cuda")
+    cfg = riccati.MPCConfig(horizon=26)
+    kcfg, kcfg5 = riccati.kernel_cfg(cfg, 26), riccati.kernel_cfg(cfg, 5)
+    with pytest.raises(ValueError, match="N <= 25"):
+        ilqr.ilqr_cuda(kcfg, cfg.params, x0, ref, ref, v, lam)
+    with pytest.raises(ValueError, match="cuda tensors"):
+        ilqr.ilqr_cuda(kcfg5, cfg.params, x0.cpu(), ref.cpu(), ref.cpu(),
+                       v[:, :5].cpu(), lam[:, :5].cpu())
+    with pytest.raises(TypeError):
+        ilqr.ilqr_cuda(kcfg5, cfg.params, x0.float(), ref, ref,
+                       v[:, :5].contiguous(), lam[:, :5].contiguous())
+    with pytest.raises(RuntimeError, match="backward"):
+        ilqr.ilqr_cuda(kcfg5, cfg.params, x0.requires_grad_(), ref, ref,
+                       v[:, :5].contiguous(), lam[:, :5].contiguous())

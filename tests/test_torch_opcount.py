@@ -1,0 +1,111 @@
+"""The operation counts of kernels K4 and K5 (``ops.opcount``): their
+bodies on the CPU on the counting scalar of ``csrc/op_count.h``.
+
+The counted run computes what the host build computes, bit for bit, and
+its count does not depend on how the scenarios are split over threads.
+The count leaves out what the function does not need: the forging force
+costs its 44 operations only where its gate is open, and the AL-iLQR solve
+costs less on the return stroke, where that gate stays shut.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_host_kernels as hk
+from forging_control_tpu_torch import bench
+from forging_control_tpu_torch.loop import closed_loop as cl
+from forging_control_tpu_torch.ops import opcount
+from forging_control_tpu_torch.physics import press
+from forging_control_tpu_torch.solver import riccati
+
+
+def _plant_inputs(B, seed):
+    rng = np.random.default_rng(seed)
+    lo = np.array([-0.02, -0.9, -3e6, -3e6, -0.25])
+    hi = np.array([0.15, 0.9, 3.5e7, 3.5e7, 0.25])
+    x = lo + (hi - lo) * rng.random((B, 5))
+    u = rng.uniform(-0.25, 0.25, B)
+    w = rng.standard_normal((B, 5)) * np.array([5e-4, 2e-3, 5e4, 5e4, 2e-3])
+    v = rng.standard_normal((B, 5)) * np.array([1e-5, 1e-4, 1e4, 1e4, 1e-4])
+    return hk.float64(x, x, u, w, v)
+
+
+@pytest.mark.parametrize("variant", ["raw", "smooth", "clamp"])
+def test_torch_opcount_plant_outputs_equal_host_build(variant):
+    hk.lib()
+    cfg = cl.LoopConfig(variant=variant, state_clip=(0.12, 0.6, 3.3e7,
+                                                     3.3e7, 0.2))
+    t = _plant_inputs(24, 1)
+    outs, one = opcount.plant_ops(cfg, *t, threads=1)
+    for got, want in zip(outs, hk.plant_host(cfg, *t)):
+        assert torch.equal(got, want)
+    _, three = opcount.plant_ops(cfg, *t, threads=3)
+    assert one["total"] == three["total"] > 0
+    assert one["by_phase"] == three["by_phase"]
+    assert sum(one["by_phase"].values()) == one["total"]
+
+
+def test_torch_opcount_forging_force_only_where_its_gate_opens():
+    """press.forging_force in values, counted by hand: clip of y (2),
+    max of y_dot (1), H0 - y_s (1), w1 (H0 / h1 as a reciprocal and a
+    product 2, pow 1, times W0 1), b1 (8), Kd (8), Ad (1), e (H0 - y_s 1,
+    H0 / . 2, log 1, max 1), e_dot (2), its floor (1) and the product of
+    the seven factors with exp(M4 / e) (11): 44, and 0 where y <= 0 or
+    y_dot < 0."""
+    hk.lib()
+    cfg = cl.LoopConfig(variant="smooth")
+    x_true, x_meas, u, w, v = _plant_inputs(16, 2)
+    x_meas[:, 0] = torch.linspace(-0.01, 0.12, 16, dtype=torch.float64)
+    x_meas[:, 1] = torch.tensor([0.2, -0.1] * 8, dtype=torch.float64)
+    x_meas[3, 0], x_meas[3, 1] = 0.05, 0.0        # y_dot = 0: open
+    is_open = (x_meas[:, 0] > 0) & (x_meas[:, 1] >= 0)
+    _, counts = opcount.plant_ops(cfg, x_true, x_meas, u, w, v)
+    assert counts["by_phase"]["forging force"] == 44 * int(is_open.sum())
+    assert 0 < int(is_open.sum()) < 16
+
+
+@pytest.mark.parametrize("p_max,trace", [(None, True), (32e6, False)],
+                         ids=["nc2_trace", "nc4"])
+def test_torch_opcount_ilqr_outputs_equal_host_build(p_max, trace):
+    hk.lib()
+    cfg = riccati.MPCConfig(horizon=5, variant="smooth", gn_iters=3,
+                            al_iters=2, p_max=p_max, record_trace=trace)
+    B = 6
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float64).repeat(B, 1)
+    ref = torch.linspace(-0.8, 0.6, B, dtype=torch.float64)
+    up = torch.zeros(B, dtype=torch.float64)
+    nc = 2 if p_max is None else 4
+    v = torch.zeros(B, 5, dtype=torch.float64)
+    lam = torch.zeros(B, 5, nc, dtype=torch.float64)
+    kcfg = riccati.kernel_cfg(cfg, 5)
+    out, one = opcount.ilqr_ops(kcfg, cfg.params, x0, ref, up, v, lam,
+                                threads=1)
+    want = hk.solve_host(cfg, x0, ref, up, v, lam)
+    for got, w in zip(out, want):
+        assert (got is None) == (w is None)
+        if got is not None:
+            assert torch.equal(got, w)
+    _, two = opcount.ilqr_ops(kcfg, cfg.params, x0, ref, up, v, lam,
+                              threads=2)
+    assert one == two
+    assert all(n > 0 for n in one["by_phase"].values())
+
+
+def test_torch_opcount_ilqr_return_stroke_needs_less():
+    """With negative references the press retracts and the forging force's
+    gate stays shut, so the solve needs fewer operations than with the
+    same references made positive."""
+    hk.lib()
+    cfg = bench.PRESETS["fast_5x1"](horizon=10, variant="smooth")
+    B = 8
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float32).repeat(B, 1)
+    ref = torch.linspace(0.1, 0.6, B)
+    up = torch.zeros(B)
+    v, lam = torch.zeros(B, 10), torch.zeros(B, 10, 2)
+    kcfg = riccati.kernel_cfg(cfg, 10)
+    _, work = opcount.ilqr_ops(kcfg, cfg.params, x0, ref, up, v, lam)
+    _, back = opcount.ilqr_ops(kcfg, cfg.params, x0, -ref, up, v, lam)
+    assert back["total"] < work["total"]
+    assert (back["by_phase"]["backward sweep"]
+            == work["by_phase"]["backward sweep"])
