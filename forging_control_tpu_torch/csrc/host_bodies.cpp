@@ -1,12 +1,14 @@
 // The bodies of kernels K4 and K5 (bodies.cuh) on the CPU: the same C
 // interface as csrc/plant.cu and csrc/ilqr.cu, without the stream, each
-// scenario in turn, for the tests; and the same bodies on op_count.h's
-// counting scalar (fct_plant_ops_*, fct_ilqr_ops_*), which give the
-// operations that the kernels need for given inputs (chip_smoke.py's
-// bounds).  Built with g++ -O2 -ffp-contract=off (ops/build.py build_host)
-// so that every multiply and add rounds on its own, as PyTorch's CPU
-// kernels do; no path of the port calls it.
-
+// scenario in turn (K5's team of G lanes run one lane after another between
+// its barriers, over a local buffer in place of shared memory), for the
+// tests; and the same bodies on op_count.h's counting scalar
+// (fct_plant_ops_*, fct_ilqr_ops_*), which give the operations that the
+// kernels need for given inputs (chip_smoke.py's bounds).  Built with g++
+// -O2 -ffp-contract=off (ops/build.py build_host) so that every multiply
+// and add rounds on its own, as PyTorch's CPU kernels do; no path of the
+// port calls it.
+#include <algorithm>
 #include <thread>
 #include <vector>
 
@@ -27,14 +29,60 @@ int plant(const fct::PressParams* P, const fct::PlantCfg* c, const T* xt,
   return 0;
 }
 
+// K5's team on the CPU: each(f) runs every lane in lane order, so a lane
+// finds what the lanes before it wrote in the same phase, as no lane on the
+// card may rely on; the tests cannot show a missing barrier (chip_smoke.py
+// 3d runs the kernel under compute-sanitizer where the tool supports the
+// card).
+template <int G>
+struct TeamSerial {
+  template <class F> void each(F&& f) const {
+    for (int lane = 0; lane < G; ++lane) f(lane);
+  }
+};
+
+// Whether the card's kernel takes this configuration (ilqr.cu launch,
+// less the teams a block holds, which the host has no use for).
+template <class T>
+bool ilqr_takes(const fct::IlqrCfg* c, int B, int G) {
+  return B >= 0 && c->N >= 1
+         && (long long)fct::ilqr_team_fields(c->N) * sizeof(T) <= 227 * 1024
+         && (c->nc == 2 || c->nc == 4) && c->substeps >= 1
+         && (G == 4 || G == 8 || G == 16 || G == 32);
+}
+
+// Scenarios lo..hi-1 by the team of G lanes, K tangents a unit; skip:
+// ilqr_team's skip_repeats.
+template <class T, int K>
+void ilqr_scenarios(const fct::PressParams* P, const fct::IlqrCfg* c,
+                    const fct::IlqrIO<T>& io, int G, int lo, int hi,
+                    bool skip) {
+  std::vector<T> sm(fct::ilqr_team_fields(c->N));
+  for (int b = lo; b < hi; ++b) {
+    std::fill(sm.begin(), sm.end(), T());
+    T* s = sm.data();
+    switch (G) {
+      case 4:
+        fct::ilqr_team<T, 4, K>(*P, *c, io, b, s, TeamSerial<4>(), skip);
+        break;
+      case 8:
+        fct::ilqr_team<T, 8, K>(*P, *c, io, b, s, TeamSerial<8>(), skip);
+        break;
+      case 16:
+        fct::ilqr_team<T, 16, K>(*P, *c, io, b, s, TeamSerial<16>(), skip);
+        break;
+      default:
+        fct::ilqr_team<T, 32, K>(*P, *c, io, b, s, TeamSerial<32>(), skip);
+    }
+  }
+}
+
 template <class T>
 int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
-         int B) {
-  if (B < 0 || c->N < 1 || c->N > 25 || (c->nc != 2 && c->nc != 4) ||
-      c->substeps < 1)
-    return 1;
-  const fct::IlqrIO<T> io = fct::ilqr_io<T>(p);
-  for (int b = 0; b < B; ++b) fct::ilqr_body<T>(*P, *c, io, b, B);
+         int B, int G, int teams) {
+  if (!ilqr_takes<T>(c, B, G) || teams < 1) return 1;
+  ilqr_scenarios<T, fct::kIlqrTangents>(P, c, fct::ilqr_io<T>(p), G, 0, B,
+                                        true);
   return 0;
 }
 
@@ -101,17 +149,21 @@ int plant_ops(const fct::PressParams* P, const fct::PlantCfg* c, const F* xt,
 }
 
 // K5's body on counted scalars: the outputs as ilqr<F> gives them, and
-// the operations by phase (bodies.cuh ilqr_body: 0 the initial rollout,
+// the operations by phase (bodies.cuh ilqr_team: 0 the initial rollout,
 // 1 the stages' RK4 with tangents, 2 the residuals and Gauss-Newton
 // blocks, 3 the backward sweep, 4 the forward sweep, 5 the accept rule,
-// the AL update and the diagnostics).
+// the AL update and the diagnostics).  ops: the function's operations,
+// each stage linearised in one unit of 7 tangents (K = 7: no value
+// evaluated twice) and every iteration run; exec_ops, unless null: those
+// the kernel runs (K = kIlqrTangents: each unit evaluates its stage's
+// values anew; an iteration that repeats the last one skipped).  The
+// partition over the team's lanes adds none.
 template <class F>
 int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
-             void* const* p, int B, int threads, unsigned long long* ops) {
+             void* const* p, int B, int G, int teams, int threads,
+             unsigned long long* ops, unsigned long long* exec_ops) {
   typedef fct::Counted<F> C;
-  if (B < 0 || c->N < 1 || c->N > 25 || (c->nc != 2 && c->nc != 4) ||
-      c->substeps < 1)
-    return 1;
+  if (!ilqr_takes<F>(c, B, G) || teams < 1) return 1;
   const long long N = c->N, nc = c->nc;
   const long long rows = (long long)c->al_iters * c->gn_iters * 6;
   const fct::IlqrIO<F> io = fct::ilqr_io<F>(p);
@@ -121,7 +173,7 @@ int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
   std::vector<C> u0(B), v(N * B), lam(N * nc * B), obj(B), inf_pr(B),
       inf_du(B), reg(B), d_norm(B), mu(B), alpha(B),
       trace(c->record_trace ? rows * B : 0),
-      scratch((long long)fct::ilqr_scratch_fields(c->N) * B);
+      zc((long long)fct::ilqr_zc_fields(c->N) * B);
   fct::IlqrIO<C> cio;
   cio.x0 = x0.data();
   cio.ref = ref.data();
@@ -140,9 +192,13 @@ int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
   cio.mu = mu.data();
   cio.alpha = alpha.data();
   cio.trace = trace.data();
-  cio.scratch = scratch.data();
+  cio.zc = zc.data();
+  if (exec_ops)
+    counted_chunks(B, threads, exec_ops, [&](int lo, int hi) {
+      ilqr_scenarios<C, fct::kIlqrTangents>(P, c, cio, G, lo, hi, true);
+    });
   counted_chunks(B, threads, ops, [&](int lo, int hi) {
-    for (int b = lo; b < hi; ++b) fct::ilqr_body<C>(*P, *c, cio, b, B);
+    ilqr_scenarios<C, 7>(P, c, cio, G, lo, hi, false);
   });
   counted_out(u0, io.u0);
   counted_out(v, io.v);
@@ -184,19 +240,25 @@ extern "C" int fct_plant_ops_f64(const fct::PressParams* P,
 
 extern "C" int fct_ilqr_ops_f32(const fct::PressParams* P,
                                 const fct::IlqrCfg* c, void* const* ptrs,
-                                int B, int threads, unsigned long long* ops) {
-  return ilqr_ops<float>(P, c, ptrs, B, threads, ops);
+                                int B, int G, int teams, int threads,
+                                unsigned long long* ops,
+                                unsigned long long* exec_ops) {
+  return ilqr_ops<float>(P, c, ptrs, B, G, teams, threads, ops, exec_ops);
 }
 
 extern "C" int fct_ilqr_ops_f64(const fct::PressParams* P,
                                 const fct::IlqrCfg* c, void* const* ptrs,
-                                int B, int threads, unsigned long long* ops) {
-  return ilqr_ops<double>(P, c, ptrs, B, threads, ops);
+                                int B, int G, int teams, int threads,
+                                unsigned long long* ops,
+                                unsigned long long* exec_ops) {
+  return ilqr_ops<double>(P, c, ptrs, B, G, teams, threads, ops, exec_ops);
 }
 
-extern "C" int fct_ilqr_scratch_fields(int N) {
-  return fct::ilqr_scratch_fields(N);
+extern "C" int fct_ilqr_team_fields(int N) {
+  return fct::ilqr_team_fields(N);
 }
+
+extern "C" int fct_ilqr_zc_fields(int N) { return fct::ilqr_zc_fields(N); }
 
 extern "C" int fct_plant_f32(const fct::PressParams* P,
                              const fct::PlantCfg* c, const float* xt,
@@ -215,11 +277,11 @@ extern "C" int fct_plant_f64(const fct::PressParams* P,
 }
 
 extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B) {
-  return ilqr<float>(P, c, ptrs, B);
+                            void* const* ptrs, int B, int G, int teams) {
+  return ilqr<float>(P, c, ptrs, B, G, teams);
 }
 
 extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B) {
-  return ilqr<double>(P, c, ptrs, B);
+                            void* const* ptrs, int B, int G, int teams) {
+  return ilqr<double>(P, c, ptrs, B, G, teams);
 }

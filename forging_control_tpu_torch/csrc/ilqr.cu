@@ -1,5 +1,5 @@
-// Kernel K5: the whole AL-iLQR solve of solver/riccati.py solve_batch, one
-// thread per scenario.
+// Kernel K5: the whole AL-iLQR solve of solver/riccati.py solve_batch, a
+// team of G lanes per scenario.
 //
 // Replaces the JAX package's compiled solve, forging_control_tpu/solver/
 // riccati.py:148-359 `solve_batch`, whose lax.scans (the stage
@@ -14,21 +14,37 @@
 // in-line costs, the first-minimum argmin and the accept rule), the AL
 // update of the multipliers and the penalty, the final objective and
 // diagnostics and, if asked, the per-iteration trace (bodies.cuh
-// ilqr_body).
+// ilqr_team).
 //
-// Bound on an H100: latency.  At N = 10 (fast_5x1) a scenario needs about
-// 1.0 M operations (0.8 M on the return stroke, where the forging force's
-// gate is shut; ops/opcount.py) in dependent chains of dual-number
-// arithmetic: 0.064 ms of the card's float32 rate at B = 4,096, where it
-// takes milliseconds (PERF.md); at B = 4,096 one
-// thread per scenario is 128 warps, about one per SM, so nothing hides the
-// latency of a dependent instruction.  Blocks of 32 threads spread those
-// warps over the SMs.  A scenario's blocks (the trajectory, the linearised
-// dynamics, the Gauss-Newton blocks, the gains and the line search's
-// candidates: 133 N + 30 values) live in a scratch buffer that the wrapper
-// allocates, laid out field-major so that the threads of a warp touch
-// neighbouring words.  Spreading the tangents over lanes, shared memory for
-// the blocks and more warps per SM are the next design's work.
+// Bound on an H100: latency.  A scenario needs about 1.0 M operations at
+// N = 10 (fast_5x1; 0.8 M on the return stroke, where the forging force's
+// gate is shut; ops/opcount.py), in dependent chains of dual-number
+// arithmetic: the card's float32 rate would take 0.064 ms at B = 4,096.
+// One thread per scenario left one warp on an SM and each chain exposed.
+// So a team of G lanes (G = 4, 8, 16, 32, a template parameter; every team
+// inside one warp) works on a scenario in phases (bodies.cuh): the stages'
+// linearisation units (a stage x a group of K = 4 tangents) and
+// Gauss-Newton blocks spread over the lanes, the backward sweep's 6x6
+// products one entry a lane, the four line-search candidates on four
+// lanes, the sums in stage order on one lane.  Between phases the team
+// waits at __syncwarp with its own lanes' mask (teams follow their own
+// scenario: a team skips the iterations that would repeat, bit for bit, an
+// iteration that took no step, at N = 25 about half of them).  What
+// remains is the chain of one stage's physics
+// (IEEE division, square root, pow, log and exp, unfused): the forward
+// sweep rolls N stages one after another on each candidate's lane, and
+// the linearisation takes ceil(N x 2 / G) units a lane (PERF.md).  G = 8
+// is the default: 4 teams fill a warp, and at 255 registers the 8 warps
+// an SM holds keep B = 4,096 scenarios at N = 10 in one wave.  A
+// scenario's blocks (108 N + 185 values) live in the
+// block's dynamic shared memory, one slice a team, so a phase reads what
+// another lane wrote at shared-memory latency; only the line search's
+// candidate states (24 N values, written once and read once an iteration)
+// go to a scratch in device memory, besides the inputs and outputs.  A
+// block is one warp at most: the wrapper (ops/ilqr.py) picks the teams a
+// block holds from N, the dtype and the 227 KB that a block may use; so the
+// horizon is bounded only by one scenario's blocks in 227 KB (N <= 536 in
+// float32, 267 in float64).
 //
 // Built with --fmad=false (ops/build.py): the plain version rounds every
 // multiply and add on its own, and so does this kernel, so that its
@@ -36,11 +52,14 @@
 // the same physics, equals the plain plant bit for bit).  The reductions
 // (the Gauss-Newton blocks, the costs) sum in another order than
 // PyTorch's, so the solve agrees with the plain one to rounding, about
-// 1e-15 in float64 at N = 5 and 10.
+// 1e-15 in float64 at N = 5 and 10; the team changes no bit of it.
 //
 // The C entry points that launch do so on the given stream, allocate
-// nothing, do not synchronise, and return cudaGetLastError()
-// (cudaErrorInvalidValue for N outside 1..25 or nc other than 2 and 4).
+// nothing, do not synchronise, and return cudaGetLastError(), or
+// cudaErrorInvalidValue for what they cannot run: N < 1, one scenario's
+// blocks beyond 227 KB, nc other than 2 and 4, substeps < 1, a team size
+// not built (float32: 4, 8, 16, 32; float64: 8), or teams that do not fit
+// one warp or the block's shared memory.
 
 #include <cuda_runtime.h>
 
@@ -48,49 +67,96 @@
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kWarp = 32;
+constexpr int kSharedBytes = 227 * 1024;   // a block's opt-in maximum
+// The default team size (ops/ilqr.py TEAM); float64 is built for it alone,
+// float32 for every size (the others are there to be timed), which keeps
+// this source's build near the other sources'.
+constexpr int kTeam = 8;
 
 // The kernel's own count of its runs on this card: the first thread of the
 // first block adds one at every launch, so that a replayed CUDA graph shows
 // whether the kernel's node ran (fct_ilqr_runs reads and resets it).
 __device__ unsigned long long g_runs = 0;
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-ilqr_kernel(fct::PressParams P, fct::IlqrCfg c, fct::IlqrIO<T> io, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b == 0) atomicAdd(&g_runs, 1ULL);
-  if (b >= B) return;
-  fct::ilqr_body<T>(P, c, io, b, B);
+// Blocks of at most one warp, each holding `teams` teams of G lanes.
+template <class T, int G>
+__global__ void __launch_bounds__(kWarp)
+ilqr_kernel(const __grid_constant__ fct::PressParams P,
+            const __grid_constant__ fct::IlqrCfg c,
+            const __grid_constant__ fct::IlqrIO<T> io, int B, int teams) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs, 1ULL);
+  const int team = threadIdx.x / G;
+  const int b = blockIdx.x * teams + team;
+  if (b >= B) return;   // the whole team
+  T* sm = reinterpret_cast<T*>(smem)
+          + (long long)team * fct::ilqr_team_fields(c.N);
+  const int lane = threadIdx.x % G;
+  const unsigned mask =
+      G == kWarp ? 0xffffffffu
+                 : ((1u << G) - 1u) << ((threadIdx.x % kWarp) / G * G);
+  fct::ilqr_team<T, G, fct::kIlqrTangents>(P, c, io, b, sm,
+                                           fct::TeamLanes{lane, mask}, true);
+}
+
+template <class T, int G>
+int launch_team(const fct::PressParams* P, const fct::IlqrCfg* c,
+                void* const* p, int B, int teams, cudaStream_t stream) {
+  const long long bytes =
+      (long long)teams * fct::ilqr_team_fields(c->N) * sizeof(T);
+  if (teams < 1 || teams * G > kWarp || bytes > kSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {   // beyond the default: opt in (per device)
+    const cudaError_t e = cudaFuncSetAttribute(
+        ilqr_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSharedBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const fct::IlqrIO<T> io = fct::ilqr_io<T>(p);
+  ilqr_kernel<T, G><<<(B + teams - 1) / teams, teams * G, bytes, stream>>>(
+      *P, *c, io, B, teams);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
 int launch(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
-           int B, void* stream) {
-  if (B < 0 || c->N < 1 || c->N > 25 || (c->nc != 2 && c->nc != 4) ||
-      c->substeps < 1)
+           int B, int G, int teams, void* stream) {
+  if (B < 0 || c->N < 1
+      || (long long)fct::ilqr_team_fields(c->N) * sizeof(T) > kSharedBytes
+      || (c->nc != 2 && c->nc != 4) || c->substeps < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
-  const fct::IlqrIO<T> io = fct::ilqr_io<T>(p);
-  ilqr_kernel<T><<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(*P, *c, io, B);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 8) {   // float64: the default team only
+    if (G == kTeam) return launch_team<T, kTeam>(P, c, p, B, teams, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    switch (G) {
+      case 4: return launch_team<T, 4>(P, c, p, B, teams, s);
+      case 8: return launch_team<T, 8>(P, c, p, B, teams, s);
+      case 16: return launch_team<T, 16>(P, c, p, B, teams, s);
+      case 32: return launch_team<T, 32>(P, c, p, B, teams, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int fct_ilqr_scratch_fields(int N) {
-  return fct::ilqr_scratch_fields(N);
-}
+// K: the forward tangents of one stage-linearisation unit.
+extern "C" int fct_ilqr_tangents() { return fct::kIlqrTangents; }
 
 extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, void* stream) {
-  return launch<float>(P, c, ptrs, B, stream);
+                            void* const* ptrs, int B, int G, int teams,
+                            void* stream) {
+  return launch<float>(P, c, ptrs, B, G, teams, stream);
 }
 
 extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, void* stream) {
-  return launch<double>(P, c, ptrs, B, stream);
+                            void* const* ptrs, int B, int G, int teams,
+                            void* stream) {
+  return launch<double>(P, c, ptrs, B, G, teams, stream);
 }
 
 // The runs counted since the library was loaded or last reset, into *out;

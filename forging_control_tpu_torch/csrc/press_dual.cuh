@@ -390,21 +390,31 @@ FCT_HD void rk4_step(Dual<T, K> x[5], const Dual<T, K>& u, const T* w,
   typedef Dual<T, K> D;
   const double h = dt / substeps;
   const T hh = T(0.5 * h), hf = T(h), h6 = T(h / 6.0);
-  D k1[5], k2[5], k3[5], k4[5], xt[5];
+  // x + h6 * (((k1 + 2 k2) + 2 k3) + k4), summed into acc as each k comes,
+  // in that order: one k live at a time, not four.
+  D k[5], acc[5], xt[5];
   for (int s = 0; s < substeps; ++s) {
-    rhs(x, u, variant, P, k1);
-    if (w) for (int i = 0; i < 5; ++i) k1[i] = k1[i] + w[i];
-    for (int i = 0; i < 5; ++i) xt[i] = x[i] + hh * k1[i];
-    rhs(xt, u, variant, P, k2);
-    if (w) for (int i = 0; i < 5; ++i) k2[i] = k2[i] + w[i];
-    for (int i = 0; i < 5; ++i) xt[i] = x[i] + hh * k2[i];
-    rhs(xt, u, variant, P, k3);
-    if (w) for (int i = 0; i < 5; ++i) k3[i] = k3[i] + w[i];
-    for (int i = 0; i < 5; ++i) xt[i] = x[i] + hf * k3[i];
-    rhs(xt, u, variant, P, k4);
-    if (w) for (int i = 0; i < 5; ++i) k4[i] = k4[i] + w[i];
-    for (int i = 0; i < 5; ++i)
-      x[i] = x[i] + h6 * (((k1[i] + T(2) * k2[i]) + T(2) * k3[i]) + k4[i]);
+    rhs(x, u, variant, P, k);
+    if (w) for (int i = 0; i < 5; ++i) k[i] = k[i] + w[i];
+    for (int i = 0; i < 5; ++i) {
+      acc[i] = k[i];
+      xt[i] = x[i] + hh * k[i];
+    }
+    rhs(xt, u, variant, P, k);
+    if (w) for (int i = 0; i < 5; ++i) k[i] = k[i] + w[i];
+    for (int i = 0; i < 5; ++i) {
+      acc[i] = acc[i] + T(2) * k[i];
+      xt[i] = x[i] + hh * k[i];
+    }
+    rhs(xt, u, variant, P, k);
+    if (w) for (int i = 0; i < 5; ++i) k[i] = k[i] + w[i];
+    for (int i = 0; i < 5; ++i) {
+      acc[i] = acc[i] + T(2) * k[i];
+      xt[i] = x[i] + hf * k[i];
+    }
+    rhs(xt, u, variant, P, k);
+    if (w) for (int i = 0; i < 5; ++i) k[i] = k[i] + w[i];
+    for (int i = 0; i < 5; ++i) x[i] = x[i] + h6 * (acc[i] + k[i]);
   }
 }
 

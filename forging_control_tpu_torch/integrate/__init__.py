@@ -1,1 +1,1 @@
-from .rk4 import rk4_step  # noqa: F401
+from .rk4 import make_stepper, rk4_step  # noqa: F401

@@ -42,3 +42,14 @@ def rk4_step(f: Callable, x, u, dt: float, substeps: int = 4,
         k4 = g(x + h * k3, u)
         x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
     return x
+
+
+def make_stepper(f: Callable, dt: float, substeps: int = 4) -> Callable:
+    """Bind f, dt and substeps into a ``step(x, u[, disturbance])``
+    closure (``forging_control_tpu/integrate/rk4.py:56-62``)."""
+
+    def step(x, u, disturbance=None):
+        return rk4_step(f, x, u, dt, substeps=substeps,
+                        disturbance=disturbance)
+
+    return step

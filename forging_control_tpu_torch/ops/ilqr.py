@@ -2,9 +2,10 @@
 
 Wrapper of the hand-written CUDA kernel ``csrc/ilqr.cu``: one launch runs
 :func:`forging_control_tpu_torch.solver.riccati.solve_batch`'s rounds for
-every scenario, one thread per scenario (the body is ``csrc/bodies.cuh``
-``ilqr_body`` on the device physics of ``csrc/press_dual.cuh``).  It is the
-counterpart of the JAX package's compiled ``riccati.solve_batch``
+every scenario, a team of G lanes per scenario whose blocks live in shared
+memory (the body is ``csrc/bodies.cuh`` ``ilqr_team`` on the device physics
+of ``csrc/press_dual.cuh``).  It is the counterpart of the JAX package's
+compiled ``riccati.solve_batch``
 (``forging_control_tpu/solver/riccati.py:148-359``), whose scans XLA
 compiles into one program; the JAX package has no Pallas kernel for it.
 
@@ -13,11 +14,13 @@ dispatches (:func:`~forging_control_tpu_torch.solver.riccati.solve_batch`,
 ``solver="kernel"`` or ``"plain"``) and runs the active-set polish after
 the kernel where the configuration asks for it.
 
-:func:`ilqr_cuda` checks its inputs, allocates every output and the
-scratch, takes the configuration's scalars as kernel arguments (so a
-captured control period makes no tensor from host data and reads nothing
-back), launches on the current stream and counts its launches in
-``ilqr_cuda.launches``.
+:func:`ilqr_cuda` checks its inputs, allocates every output, picks the
+launch geometry (the team size and the teams a block holds), takes the
+configuration's scalars as kernel arguments (so a captured control period
+makes no tensor from host data and reads nothing back), launches on the
+current stream and counts its launches in ``ilqr_cuda.launches``.  The
+horizon is bounded by one scenario's blocks in a block's shared memory
+(:func:`max_horizon`): N <= 536 in float32, 267 in float64.
 """
 
 from __future__ import annotations
@@ -33,7 +36,44 @@ from . import build
 from ..physics.scaling import U_SCALE
 from .plant import VARIANTS, press_params_c
 
-MAX_N = 25
+# Lanes a scenario (G): the sizes the kernel is built for (float64: the
+# default alone), and the default (the fastest at N = 10, and at N = 25
+# over both strokes, on an H100; PERF.md).
+TEAMS = (4, 8, 16, 32)
+TEAM = 8
+WARP = 32
+SHARED_BYTES = 227 * 1024   # dynamic shared memory a block may opt in to
+
+
+def team_fields(N: int) -> int:
+    """Values of one scenario's blocks in shared memory at horizon N
+    (``csrc/bodies.cuh`` ``IlqrLayout``, an odd number)."""
+    return 108 * N + 185
+
+
+def zc_fields(N: int) -> int:
+    """Values of one scenario's candidate states in device memory."""
+    return 24 * N
+
+
+def max_horizon(dtype: torch.dtype) -> int:
+    """The largest N whose blocks fit a block's shared memory in
+    ``dtype`` (float32 or float64)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    N = 1
+    while team_fields(N + 1) * size <= SHARED_BYTES:
+        N += 1
+    return N
+
+
+def teams_per_block(N: int, dtype: torch.dtype, team: int = TEAM) -> int:
+    """Teams of ``team`` lanes a block of the kernel holds at horizon N: as
+    many as fill one warp, fewer where their blocks would pass the shared
+    memory a block may use.  (Fuller blocks beat more of them: at N = 25 on
+    an H100, 3 teams of 8 a block keep 18 teams on an SM against 16 and
+    take longer, PERF.md.)"""
+    size = torch.empty((), dtype=dtype).element_size()
+    return max(1, min(WARP // team, SHARED_BYTES // (team_fields(N) * size)))
 
 
 class IlqrCfgC(ctypes.Structure):
@@ -91,15 +131,17 @@ class Solved(NamedTuple):
 
 
 _SYMBOLS = {torch.float32: "fct_ilqr_f32", torch.float64: "fct_ilqr_f64"}
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
-def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda") -> None:
+def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda",
+          team: int = TEAM) -> None:
     """Raise unless the inputs are what the kernel takes at the
-    configuration ``kcfg`` (an :class:`IlqrCfgC`): tensors on one
-    ``device_type`` device of one dtype (float32 or float64), x0 (B, 5),
-    ref and u_prev (B,), v (B, N) with N = kcfg.N and 1 <= N <= 25, lam
-    (B, N, kcfg.nc), contiguous, none requiring a gradient."""
+    configuration ``kcfg`` (an :class:`IlqrCfgC`) with teams of ``team``
+    lanes (one of :data:`TEAMS`): tensors on one ``device_type`` device of
+    one dtype (float32 or float64), x0 (B, 5), ref and u_prev (B,), v
+    (B, N) with N = kcfg.N and 1 <= N <= :func:`max_horizon` of the dtype,
+    lam (B, N, kcfg.nc), contiguous, none requiring a gradient."""
     named = {"x0": x0, "ref": ref, "u_prev": u_prev, "v": v, "lam": lam}
     for k, a in named.items():
         if not isinstance(a, torch.Tensor):
@@ -118,8 +160,17 @@ def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda") -> None:
         raise ValueError(f"ilqr_cuda: v has shape {tuple(v.shape)}, "
                          f"expected (B, N)")
     B, N = v.shape
-    if not 1 <= N <= MAX_N:
-        raise ValueError(f"ilqr_cuda supports 1 <= N <= {MAX_N}, got N={N}")
+    limit = max_horizon(v.dtype)
+    if not 1 <= N <= limit:
+        raise ValueError(f"ilqr_cuda supports 1 <= N <= {limit} in "
+                         f"{v.dtype} (one scenario's blocks in "
+                         f"{SHARED_BYTES} bytes of shared memory), got N={N}")
+    if team not in TEAMS:
+        raise ValueError(f"ilqr_cuda: team must be one of {TEAMS}, got "
+                         f"{team}")
+    if device_type == "cuda" and v.dtype == torch.float64 and team != TEAM:
+        raise ValueError(f"ilqr_cuda: float64 is built for team {TEAM} "
+                         f"only, got {team}")
     if N != kcfg.N:
         raise ValueError(f"ilqr_cuda: v has horizon {N}, the configuration "
                          f"{kcfg.N}")
@@ -140,11 +191,12 @@ def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda") -> None:
         raise ValueError(f"substeps must be at least 1, got {kcfg.substeps}")
 
 
-def prepare(kcfg, params, x0, ref, u_prev, v, lam, scratch_fields: int):
-    """The outputs (a :class:`Solved`), allocated, and the C arguments of
-    one launch without the stream, at the configuration ``kcfg`` and the
-    press parameters ``params``; ``scratch_fields`` is the library's
-    ``fct_ilqr_scratch_fields(N)``."""
+def prepare(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM):
+    """The outputs (a :class:`Solved`) and the candidates' states'
+    scratch, allocated, and the C arguments of one launch without the
+    stream, at the configuration ``kcfg``, the press parameters ``params``
+    and teams of ``team`` lanes, as many as :func:`teams_per_block` puts in
+    a block."""
     B, N = v.shape
     dtype, device = v.dtype, v.device
     like = lambda *shape: torch.empty(*shape, dtype=dtype,  # noqa: E731
@@ -156,34 +208,29 @@ def prepare(kcfg, params, x0, ref, u_prev, v, lam, scratch_fields: int):
         obj=like(B), inf_pr=like(B), inf_du=like(B), reg=like(B),
         d_norm=like(B), mu=like(B), alpha=like(B),
         trace=like(B, rounds, 6) if kcfg.record_trace else None)
-    scratch = like(scratch_fields * B)
+    zc = like(zc_fields(N) * B)
     ptrs = (ctypes.c_void_p * 18)(*(
         None if a is None else a.data_ptr() for a in (
-            x0, ref, u_prev, v, lam, *out, scratch)))
+            x0, ref, u_prev, v, lam, *out, zc)))
     args = (ctypes.addressof(press_params_c(params)),
-            ctypes.addressof(kcfg), ptrs, B)
-    return out, scratch, args
+            ctypes.addressof(kcfg), ptrs, B, team,
+            teams_per_block(N, dtype, team))
+    return out, zc, args
 
 
-@functools.cache
-def _scratch_fields(N: int) -> int:
-    fn = build.entry("ilqr", "fct_ilqr_scratch_fields", (ctypes.c_int,))
-    return fn(N)
-
-
-def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam) -> Solved:
+def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM) \
+        -> Solved:
     """Kernel K5: the AL-iLQR rounds of ``solver/riccati.py`` at the
     configuration ``kcfg`` (an :class:`IlqrCfgC`, which
     ``riccati.kernel_cfg`` builds) and the press parameters ``params``, for
     B scenarios from the warm start (v, lam), with the initial states x0,
     the references and the previous commands u_prev (physical units), all
-    contiguous CUDA tensors of one dtype (see :func:`check`).  The
-    active-set polish is not the kernel's: ``riccati.solve_batch`` runs it
-    after the launch."""
-    check(kcfg, x0, ref, u_prev, v, lam)
+    contiguous CUDA tensors of one dtype (see :func:`check`); ``team``
+    lanes a scenario.  The active-set polish is not the kernel's:
+    ``riccati.solve_batch`` runs it after the launch."""
+    check(kcfg, x0, ref, u_prev, v, lam, team=team)
     fn = build.entry("ilqr", _SYMBOLS[v.dtype], _ARGTYPES)
-    out, _scratch, args = prepare(kcfg, params, x0, ref, u_prev, v, lam,
-                                  _scratch_fields(v.shape[1]))
+    out, _zc, args = prepare(kcfg, params, x0, ref, u_prev, v, lam, team)
     build.launch("ilqr", fn, v.device, *args)
     ilqr_cuda.launches += 1
     return out

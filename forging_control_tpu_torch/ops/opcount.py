@@ -61,20 +61,30 @@ def plant_ops(cfg, x_true, x_meas, u, w, v, threads=None):
     return outs, _by_phase(ops, PLANT_PHASES)
 
 
-def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None):
+def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None,
+             executed=False, team=ilqr.TEAM):
     """(outputs, counts) of K5's body on these CPU tensors
     (``ops.ilqr.ilqr_cuda``'s arguments): the outputs an
     :class:`ops.ilqr.Solved`, ``counts`` ``{"total": n, "by_phase":
-    {...}}`` over :data:`ILQR_PHASES`."""
-    ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu")
-    fields = build.build_host().fct_ilqr_scratch_fields(v.shape[1])
-    out, _scratch, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
-                                       fields)
+    {...}}`` over :data:`ILQR_PHASES`: the function's operations, each
+    value counted once, every iteration run.  With ``executed``,
+    ``counts["executed"]`` is the same reading for what the kernel runs:
+    its linearisation units each evaluate their stage's values again, and
+    it skips the iterations that repeat a step not taken
+    (``csrc/host_bodies.cpp`` ``ilqr_ops``)."""
+    ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu", team=team)
+    out, _zc, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
+                                  team)
     dtype = "f32" if v.dtype == torch.float32 else "f64"
     ops = (ctypes.c_ulonglong * 8)()
+    exec_ops = (ctypes.c_ulonglong * 8)() if executed else None
     fn = _fn(f"fct_ilqr_ops_{dtype}",
              ilqr._ARGTYPES[:-1]
-             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)))
-    if fn(*args, _threads(threads), ops) != 0:
+             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong),
+                ctypes.POINTER(ctypes.c_ulonglong)))
+    if fn(*args, _threads(threads), ops, exec_ops) != 0:
         raise ValueError("fct_ilqr_ops refused its arguments")
-    return out, _by_phase(ops, ILQR_PHASES)
+    counts = _by_phase(ops, ILQR_PHASES)
+    if executed:
+        counts["executed"] = _by_phase(exec_ops, ILQR_PHASES)
+    return out, counts

@@ -13,6 +13,10 @@ import torch
 X_SCALE = np.array([0.1, 0.1, 1e7, 1e7, 0.01])
 U_SCALE = 0.01
 
+# Feasibility-recovery NLP scaling (Supervised Learning/Main.py:541-548).
+FEAS_U_SCALE = 0.2
+FEAS_X_SCALE = np.array([0.02, 0.4, 32e6, 32e6, 0.15])
+
 
 def _x_scale(x: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(X_SCALE, dtype=x.dtype, device=x.device)

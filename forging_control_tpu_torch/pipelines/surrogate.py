@@ -23,6 +23,7 @@ from ..parallel import mesh as pmesh
 from .config import SurrogateConfig
 
 SURROGATE_FEATURES = ("y_dot", "p1", "p2", "z", "u")
+SURROGATE_TARGETS = ("y_dot", "p1", "p2", "z")
 TRAJ_LEN = 300        # rows per trajectory in the reference datasets
 
 

@@ -1,6 +1,6 @@
 """Kernel K5 (the whole AL-iLQR solve) on the CPU, float64: its body
-(``csrc/bodies.cuh`` ``ilqr_body`` on ``csrc/press_dual.cuh``, built for the
-host by ``g++ -O2 -ffp-contract=off``) against the plain version
+(``csrc/bodies.cuh`` ``ilqr_team`` on ``csrc/press_dual.cuh``, built for
+the host by ``g++ -O2 -ffp-contract=off``) against the plain version
 (``solver/riccati.py`` in tensor code) and the JAX package's
 ``riccati.solve_batch``.
 
@@ -9,12 +9,20 @@ three model variants, the trace, cold and warm starts, on the scenarios of
 the iLQR parity test (tests/test_torch_riccati.py) and on ties of the
 physics (y > 0 with y_dot = 0 on the forging force's gate; a working
 pressure on the orifice's kink), plus a stage whose AL residual sits
-exactly at the max(., 0) kink.  Bounds: u0, v and lam within 1e-9 of the
-plain version (the smoke run's card-against-CPU bound), the other
+exactly at the max(., 0) kink; and N = 30 and 40, past the cap of 25 that
+the kernel had before its blocks moved to shared memory, with the 6 x 2
+rounds of the ``teacher_6x2`` preset (p_max None at N = 30, 32e6 at
+N = 40), the trace at N = 30, where scenarios converge and the kernel
+skips the iterations that repeat a step not taken. Bounds: u0, v and lam within 1e-9
+of the plain version (the smoke run's card-against-CPU bound), the other
 diagnostics at the parity test's bounds; against the JAX package, the
-parity test's bounds.  Then the closed loop through both kernels (K5 and
-K4 on the host) against the JAX package's, the dispatch rules, and the
-wrapper's refusals.
+parity test's bounds. At N = 30 and 40 the JAX package and the plain path
+on the CPU part from each other beyond 1e-9 in none of the five scenarios
+(share 0), so no case here needs the share rule that the card's checks
+apply at N = 25 and 30. The team's partition changes no bit: every team
+size gives the same outputs. Then the closed loop through both kernels (K5
+and K4 on the host) against the JAX package's, the dispatch rules, the
+shared-memory layout and its horizon limit, and the wrapper's refusals.
 """
 
 import dataclasses
@@ -57,6 +65,11 @@ CASES = {
     "N10_fast_pmax_trace": jsqp.MPCConfig.fast(
         horizon=10, gn_iters=5, variant="smooth", p_max=32e6,
         record_trace=True),
+    "N30_teacher_trace": jsqp.MPCConfig(horizon=30, variant="smooth",
+                                        gn_iters=6, al_iters=2,
+                                        record_trace=True),
+    "N40_teacher_pmax": jsqp.MPCConfig(horizon=40, variant="smooth",
+                                       gn_iters=6, al_iters=2, p_max=32e6),
 }
 
 
@@ -142,6 +155,44 @@ def test_torch_ilqr_host_matches_plain_and_jax(case, start):
                                    atol=1e-12)
     if start == "cold" and cfg.p_max is None:
         assert st.lam[2].max() > 0       # the bound is active: AL at work
+    if case == "N30_teacher_trace":      # steps not taken, then repeats
+        assert (out.trace[:, 1:, 3] == 0).any()
+
+
+@pytest.mark.parametrize("team", [t for t in ilqr.TEAMS if t != ilqr.TEAM])
+def test_torch_ilqr_host_same_bits_for_every_team(team):
+    """Every value is computed by one lane in one order, whatever the team
+    size: the outputs at each G equal the default team's bit for bit."""
+    xs, ups, state0, _ = _jax_runs("N25_clamp")["warm"]
+    cfg = _port_cfg(CASES["N25_clamp"])
+    args = hk.float64(xs, REFS, ups, state0.v, state0.lam)
+    want = hk.solve_host(cfg, *args)
+    got = hk.solve_host(cfg, *args, team=team)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_torch_ilqr_shared_layout_and_horizon_limit():
+    """The wrapper's size of a scenario's blocks is the body's
+    (IlqrLayout, and the candidates' states in device memory); the horizon
+    limit is the largest N whose blocks fit the 227 KB a block may use (at
+    least 200 in float64); the teams a block holds fill one warp, fewer
+    where the shared memory runs out."""
+    lib = hk.lib()
+    for N in (*range(1, 60), 267, 268, 536, 537):
+        assert ilqr.team_fields(N) == lib.fct_ilqr_team_fields(N)
+        assert ilqr.team_fields(N) % 2 == 1
+        assert ilqr.zc_fields(N) == lib.fct_ilqr_zc_fields(N)
+    for dtype, size, limit in ((torch.float32, 4, 536),
+                               (torch.float64, 8, 267)):
+        N = ilqr.max_horizon(dtype)
+        assert N == limit and (dtype == torch.float32 or N >= 200)
+        assert ilqr.team_fields(N) * size <= ilqr.SHARED_BYTES \
+            < ilqr.team_fields(N + 1) * size
+    assert ilqr.teams_per_block(10, torch.float32, 8) == 4
+    assert ilqr.teams_per_block(25, torch.float64, 4) == 8
+    assert ilqr.teams_per_block(40, torch.float64, 4) == 6
+    assert ilqr.teams_per_block(267, torch.float64, 4) == 1
 
 
 def test_torch_ilqr_host_al_residual_at_its_kink():
@@ -294,10 +345,13 @@ def test_torch_ilqr_wrapper_refuses_what_the_kernel_does_not_take():
                    lam.half(), "cpu")
     with pytest.raises(TypeError, match="float32 or float64"):
         ilqr.check(kcfg, x0.float(), ref, up, v, lam, "cpu")
-    with pytest.raises(ValueError, match="N <= 25"):
-        ilqr.check(kcfg, x0, ref, up, torch.zeros(len(XS), 26,
-                                                 dtype=torch.float64),
-                   torch.zeros(len(XS), 26, 2, dtype=torch.float64), "cpu")
+    over = ilqr.max_horizon(torch.float64) + 1
+    with pytest.raises(ValueError, match=f"N <= {over - 1} "):
+        ilqr.check(riccati.kernel_cfg(cfg, over), x0, ref, up,
+                   torch.zeros(len(XS), over, dtype=torch.float64),
+                   torch.zeros(len(XS), over, 2, dtype=torch.float64), "cpu")
+    with pytest.raises(ValueError, match="team must be one of"):
+        ilqr.check(kcfg, x0, ref, up, v, lam, "cpu", team=12)
     with pytest.raises(ValueError, match="lam has shape"):
         ilqr.check(riccati.kernel_cfg(dataclasses.replace(cfg, p_max=32e6),
                                       5), x0, ref, up, v, lam, "cpu")

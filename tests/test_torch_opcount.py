@@ -109,3 +109,47 @@ def test_torch_opcount_ilqr_return_stroke_needs_less():
     assert back["total"] < work["total"]
     assert (back["by_phase"]["backward sweep"]
             == work["by_phase"]["backward sweep"])
+
+
+# K5's operation count at a fixed input, as its one-thread body gave it
+# (B = 64, N = 10, fast_5x1, float32, the cold start at the reference state,
+# references drawn from default_rng(10) in [0.05, 0.65], negated for the
+# return stroke): the bound's numerator is the function's count, which no
+# partition of the body over lanes may move.
+PINNED_ILQR_OPS = {
+    "work": {"total": 67276590, "by_phase": {
+        "initial rollout": 1028544, "stage RK4 with tangents": 39354752,
+        "residuals and Gauss-Newton blocks": 85120,
+        "backward sweep": 2566400, "forward sweep": 24221790,
+        "accept, AL update and diagnostics": 19984}},
+    "return": {"total": 49003255, "by_phase": {
+        "initial rollout": 1028544, "stage RK4 with tangents": 27805827,
+        "residuals and Gauss-Newton blocks": 85120,
+        "backward sweep": 2566400, "forward sweep": 17496180,
+        "accept, AL update and diagnostics": 21184}},
+}
+
+
+@pytest.mark.parametrize("stroke", ["work", "return"])
+def test_torch_opcount_ilqr_pinned_to_the_one_thread_body(stroke):
+    """The function's count equals the one-thread body's at the pinned
+    input, before the body was split over lanes.  What the kernel runs
+    differs: more in the linearisation (each tangent group evaluates its
+    stage's values again), and nothing of an iteration that repeats the
+    last one, which it skips."""
+    hk.lib()
+    cfg = bench.PRESETS["fast_5x1"](horizon=10, variant="smooth")
+    B = 64
+    refs = np.random.default_rng(10).uniform(0.05, 0.65, B)
+    sign = 1.0 if stroke == "work" else -1.0
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float32).repeat(B, 1)
+    ref = torch.tensor(sign * refs, dtype=torch.float32)
+    v, lam = torch.zeros(B, 10), torch.zeros(B, 10, 2)
+    _, counts = opcount.ilqr_ops(riccati.kernel_cfg(cfg, 10), cfg.params, x0,
+                                 ref, torch.zeros(B), v, lam, executed=True)
+    executed = counts.pop("executed")
+    assert counts == PINNED_ILQR_OPS[stroke]
+    rk4 = "stage RK4 with tangents"
+    assert executed["by_phase"][rk4] > counts["by_phase"][rk4]
+    assert all(executed["by_phase"][k] <= n
+               for k, n in counts["by_phase"].items() if k != rk4)

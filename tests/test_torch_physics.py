@@ -149,6 +149,14 @@ def test_torch_scaling_matches_jax():
     np.testing.assert_array_equal(scaling.X_SCALE, jscaling.X_SCALE)
 
 
+def test_torch_feasibility_scales_match_jax():
+    """The feasibility NLP's scales, the port's own copy."""
+    assert scaling.FEAS_U_SCALE == jscaling.FEAS_U_SCALE
+    np.testing.assert_array_equal(scaling.FEAS_X_SCALE,
+                                  jscaling.FEAS_X_SCALE)
+    assert scaling.FEAS_X_SCALE.dtype == jscaling.FEAS_X_SCALE.dtype
+
+
 def test_torch_press_params_match_jax():
     import dataclasses
     assert dataclasses.asdict(press.DEFAULT_PARAMS) == \

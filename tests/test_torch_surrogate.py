@@ -63,6 +63,12 @@ def test_torch_scalers_match_jax(kind):
                                atol=1e-9)
 
 
+def test_torch_surrogate_columns_match_jax():
+    """The surrogate's feature and target columns, the port's own copy."""
+    assert surrogate.SURROGATE_FEATURES == jsurrogate.SURROGATE_FEATURES
+    assert surrogate.SURROGATE_TARGETS == jsurrogate.SURROGATE_TARGETS
+
+
 @pytest.mark.parametrize("traj_len", [None, 300, 7])
 def test_torch_windows_and_split_match_jax(traj_len):
     rng = np.random.RandomState(1)

@@ -49,22 +49,23 @@ def plant_host(cfg, x_true, x_meas, u, w, v):
     return outs
 
 
-def ilqr_host(kcfg, params, x0, ref, u_prev, v, lam) -> ilqr.Solved:
+def ilqr_host(kcfg, params, x0, ref, u_prev, v, lam,
+              team=ilqr.TEAM) -> ilqr.Solved:
     """K5's outputs from its body on the CPU, at the kernel's configuration
-    ``kcfg`` (``riccati.kernel_cfg``)."""
-    ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu")
-    fields = lib().fct_ilqr_scratch_fields(v.shape[1])
-    out, _scratch, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
-                                       fields)
+    ``kcfg`` (``riccati.kernel_cfg``), a team of ``team`` lanes a
+    scenario."""
+    ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu", team=team)
+    out, _zc, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
+                                  team)
     rc = _fn(ilqr._SYMBOLS[v.dtype], ilqr._ARGTYPES[:-1])(*args)
     assert rc == 0
     return out
 
 
-def solve_host(cfg, x0, ref, u_prev, v, lam) -> ilqr.Solved:
+def solve_host(cfg, x0, ref, u_prev, v, lam, team=ilqr.TEAM) -> ilqr.Solved:
     """:func:`ilqr_host` at an ``MPCConfig``: K5's rounds for ``cfg``."""
     return ilqr_host(riccati.kernel_cfg(cfg, v.shape[1]), cfg.params, x0,
-                     ref, u_prev, v, lam)
+                     ref, u_prev, v, lam, team)
 
 
 def route_kernels_to_host(monkeypatch) -> dict:
