@@ -1,8 +1,9 @@
 // The bodies of kernels K4 and K5 (bodies.cuh) on the CPU: the same C
 // interface as csrc/plant.cu and csrc/ilqr.cu, without the stream, each
-// scenario in turn (K5's team of G lanes run one lane after another between
-// its barriers, over a local buffer in place of shared memory), for the
-// tests; and the same bodies on op_count.h's counting scalar
+// scenario in turn (K4's team of four as arrays of its lanes' values, each
+// step run in lane order; K5's team of G lanes one lane after another
+// between its barriers, over a local buffer in place of shared memory), for
+// the tests; and the same bodies on op_count.h's counting scalar
 // (fct_plant_ops_*, fct_ilqr_ops_*), which give the operations that the
 // kernels need for given inputs (chip_smoke.py's bounds).  Built with g++
 // -O2 -ffp-contract=off (ops/build.py build_host) so that every multiply
@@ -17,15 +18,69 @@
 
 namespace {
 
+// K4's team of four on the CPU (bodies.cuh plant_team): one thread holds
+// every lane's values, in lane order, and reads lane j's for a shuffle.
+struct PlantSerial {
+  static constexpr int kLanes = 4;
+  int role(int k) const { return k; }
+  template <class T>
+  T get(const T (&v)[kLanes], int j) const {
+    return v[j];
+  }
+};
+
+// Whether the card's kernel takes this configuration (plant.cu launch).
+inline bool plant_takes(const fct::PlantCfg* c, int B, int G) {
+  return B >= 0 && c->substeps >= 1 && c->variant >= fct::RAW
+         && c->variant <= fct::CLAMP && (G == 1 || G == 4);
+}
+
+template <class T, int V>
+void plant_teams(const fct::PlantConsts<T>& C, const fct::PlantCfg* c,
+                 const T* xt, const T* xm, const T* u, const T* w,
+                 const T* v, T* xn, T* xmn, T* Fd, int lo, int hi) {
+  for (int b = lo; b < hi; ++b)
+    fct::plant_team<T, V>(C, *c, xt + 5 * b, xm + 5 * b, u[b],
+                          w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
+                          xn + 5 * b, xmn + 5 * b, Fd + b, true,
+                          PlantSerial());
+}
+
+// Scenarios lo..hi-1 through K4's body for G (1: plant_body, one thread,
+// from P; 4: plant_team, from consts, K4's constants (bodies.cuh
+// PlantConsts) in F).
+template <class T, class F>
+void plant_scenarios(const fct::PressParams* P, const fct::PlantCfg* c,
+                     const F* consts, const T* xt, const T* xm, const T* u,
+                     const T* w, const T* v, T* xn, T* xmn, T* Fd, int G,
+                     int lo, int hi) {
+  if (G == 1) {
+    for (int b = lo; b < hi; ++b)
+      fct::plant_body<T>(*P, *c, xt + 5 * b, xm + 5 * b, u[b],
+                         w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
+                         xn + 5 * b, xmn + 5 * b, Fd + b);
+    return;
+  }
+  const fct::PlantConsts<T> C = fct::plant_consts<T>(consts);
+  switch (c->variant) {
+    case fct::RAW:
+      plant_teams<T, fct::RAW>(C, c, xt, xm, u, w, v, xn, xmn, Fd, lo, hi);
+      break;
+    case fct::SMOOTH:
+      plant_teams<T, fct::SMOOTH>(C, c, xt, xm, u, w, v, xn, xmn, Fd, lo,
+                                  hi);
+      break;
+    default:
+      plant_teams<T, fct::CLAMP>(C, c, xt, xm, u, w, v, xn, xmn, Fd, lo, hi);
+  }
+}
+
 template <class T>
-int plant(const fct::PressParams* P, const fct::PlantCfg* c, const T* xt,
-          const T* xm, const T* u, const T* w, const T* v, T* xn, T* xmn,
-          T* Fd, int B) {
-  if (B < 0 || c->substeps < 1) return 1;
-  for (int b = 0; b < B; ++b)
-    fct::plant_body<T>(*P, *c, xt + 5 * b, xm + 5 * b, u[b],
-                       w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
-                       xn + 5 * b, xmn + 5 * b, Fd + b);
+int plant(const fct::PressParams* P, const fct::PlantCfg* c,
+          const T* consts, const T* xt, const T* xm, const T* u, const T* w,
+          const T* v, T* xn, T* xmn, T* Fd, int B, int G) {
+  if (!plant_takes(c, B, G)) return 1;
+  plant_scenarios<T>(P, c, consts, xt, xm, u, w, v, xn, xmn, Fd, G, 0, B);
   return 0;
 }
 
@@ -87,26 +142,37 @@ int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
 }
 
 // fn(lo, hi) over [0, B) in `threads` contiguous chunks, one thread each;
-// the per-thread operation counts summed into ops[kOpPhases].
+// the per-thread operation counts summed into ops[kOpPhases] and, unless
+// depth is null, the deepest result of each phase into depth[kOpPhases].
 template <class Fn>
-void counted_chunks(int B, int threads, unsigned long long* ops, Fn fn) {
+void counted_chunks(int B, int threads, unsigned long long* ops, Fn fn,
+                    unsigned long long* depth = nullptr) {
   if (threads < 1) threads = 1;
   std::vector<std::thread> pool;
-  std::vector<unsigned long long> sums(threads * fct::kOpPhases, 0);
+  std::vector<unsigned long long> sums(threads * fct::kOpPhases, 0),
+      deepest(threads * fct::kOpPhases, 0);
   for (int t = 0; t < threads; ++t) {
     const int lo = (long long)B * t / threads;
     const int hi = (long long)B * (t + 1) / threads;
-    pool.emplace_back([=, &sums] {
-      for (int p = 0; p < fct::kOpPhases; ++p) fct::op_counts[p] = 0;
-      fn(lo, hi);
+    pool.emplace_back([=, &sums, &deepest] {
       for (int p = 0; p < fct::kOpPhases; ++p)
+        fct::op_counts[p] = fct::op_depths[p] = 0;
+      fn(lo, hi);
+      for (int p = 0; p < fct::kOpPhases; ++p) {
         sums[t * fct::kOpPhases + p] = fct::op_counts[p];
+        deepest[t * fct::kOpPhases + p] = fct::op_depths[p];
+      }
     });
   }
   for (auto& th : pool) th.join();
   for (int p = 0; p < fct::kOpPhases; ++p) {
     ops[p] = 0;
-    for (int t = 0; t < threads; ++t) ops[p] += sums[t * fct::kOpPhases + p];
+    if (depth) depth[p] = 0;
+    for (int t = 0; t < threads; ++t) {
+      ops[p] += sums[t * fct::kOpPhases + p];
+      if (depth)
+        depth[p] = std::max(depth[p], deepest[t * fct::kOpPhases + p]);
+    }
   }
 }
 
@@ -124,24 +190,33 @@ void counted_out(const std::vector<fct::Counted<F>>& a, F* out) {
   for (size_t i = 0; i < a.size(); ++i) out[i] = a[i].x;
 }
 
-// K4's body on counted scalars: the outputs as plant<F> gives them, and
-// the operations by phase (0: Fd, 1: RK4, 2: clip and measurement).
+// K4's body for G (1: plant_body, whose count is the function's; 4:
+// plant_team, which computes both sides of every select and every lane's
+// part) on counted
+// scalars: the outputs as plant<F> gives them, the operations by phase (0:
+// Fd, 1: RK4, 2: clip and measurement) and the deepest chain reached in
+// each phase, over the scenarios.  A phase's depth runs from the inputs, so
+// the RK4's is that of the state it ends with.
 template <class F>
-int plant_ops(const fct::PressParams* P, const fct::PlantCfg* c, const F* xt,
-              const F* xm, const F* u, const F* w, const F* v, F* xn, F* xmn,
-              F* Fd, int B, int threads, unsigned long long* ops) {
+int plant_ops(const fct::PressParams* P, const fct::PlantCfg* c,
+              const F* consts, const F* xt, const F* xm, const F* u,
+              const F* w, const F* v, F* xn, F* xmn, F* Fd, int B, int G,
+              int threads, unsigned long long* ops,
+              unsigned long long* depth) {
   typedef fct::Counted<F> C;
-  if (B < 0 || c->substeps < 1) return 1;
+  if (!plant_takes(c, B, G)) return 1;
   const auto cxt = counted_in(xt, 5LL * B), cxm = counted_in(xm, 5LL * B),
              cu = counted_in(u, B), cw = counted_in(w, 5LL * B),
              cv = counted_in(v, 5LL * B);
   std::vector<C> cxn(5LL * B), cxmn(5LL * B), cFd(B);
-  counted_chunks(B, threads, ops, [&](int lo, int hi) {
-    for (int b = lo; b < hi; ++b)
-      fct::plant_body<C>(*P, *c, &cxt[5 * b], &cxm[5 * b], cu[b],
-                         w ? &cw[5 * b] : nullptr, v ? &cv[5 * b] : nullptr,
-                         &cxn[5 * b], &cxmn[5 * b], &cFd[b]);
-  });
+  counted_chunks(
+      B, threads, ops,
+      [&](int lo, int hi) {
+        plant_scenarios<C>(P, c, consts, cxt.data(), cxm.data(), cu.data(),
+                           w ? cw.data() : nullptr, v ? cv.data() : nullptr,
+                           cxn.data(), cxmn.data(), cFd.data(), G, lo, hi);
+      },
+      depth);
   counted_out(cxn, xn);
   counted_out(cxmn, xmn);
   counted_out(cFd, Fd);
@@ -219,23 +294,27 @@ int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
 extern "C" int fct_op_phases() { return fct::kOpPhases; }
 
 extern "C" int fct_plant_ops_f32(const fct::PressParams* P,
-                                 const fct::PlantCfg* c, const float* xt,
+                                 const fct::PlantCfg* c, const float* consts,
+                                 const float* xt,
                                  const float* xm, const float* u,
                                  const float* w, const float* v, float* xn,
-                                 float* xmn, float* Fd, int B, int threads,
-                                 unsigned long long* ops) {
-  return plant_ops<float>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B, threads,
-                          ops);
+                                 float* xmn, float* Fd, int B, int G,
+                                 int threads, unsigned long long* ops,
+                                 unsigned long long* depth) {
+  return plant_ops<float>(P, c, consts, xt, xm, u, w, v, xn, xmn, Fd, B, G,
+                          threads, ops, depth);
 }
 
 extern "C" int fct_plant_ops_f64(const fct::PressParams* P,
-                                 const fct::PlantCfg* c, const double* xt,
+                                 const fct::PlantCfg* c, const double* consts,
+                                 const double* xt,
                                  const double* xm, const double* u,
                                  const double* w, const double* v, double* xn,
-                                 double* xmn, double* Fd, int B, int threads,
-                                 unsigned long long* ops) {
-  return plant_ops<double>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B, threads,
-                           ops);
+                                 double* xmn, double* Fd, int B, int G,
+                                 int threads, unsigned long long* ops,
+                                 unsigned long long* depth) {
+  return plant_ops<double>(P, c, consts, xt, xm, u, w, v, xn, xmn, Fd, B,
+                           G, threads, ops, depth);
 }
 
 extern "C" int fct_ilqr_ops_f32(const fct::PressParams* P,
@@ -261,19 +340,21 @@ extern "C" int fct_ilqr_team_fields(int N) {
 extern "C" int fct_ilqr_zc_fields(int N) { return fct::ilqr_zc_fields(N); }
 
 extern "C" int fct_plant_f32(const fct::PressParams* P,
-                             const fct::PlantCfg* c, const float* xt,
+                             const fct::PlantCfg* c, const float* consts,
+                             const float* xt,
                              const float* xm, const float* u, const float* w,
                              const float* v, float* xn, float* xmn, float* Fd,
-                             int B) {
-  return plant<float>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B);
+                             int B, int G) {
+  return plant<float>(P, c, consts, xt, xm, u, w, v, xn, xmn, Fd, B, G);
 }
 
 extern "C" int fct_plant_f64(const fct::PressParams* P,
-                             const fct::PlantCfg* c, const double* xt,
+                             const fct::PlantCfg* c, const double* consts,
+                             const double* xt,
                              const double* xm, const double* u,
                              const double* w, const double* v, double* xn,
-                             double* xmn, double* Fd, int B) {
-  return plant<double>(P, c, xt, xm, u, w, v, xn, xmn, Fd, B);
+                             double* xmn, double* Fd, int B, int G) {
+  return plant<double>(P, c, consts, xt, xm, u, w, v, xn, xmn, Fd, B, G);
 }
 
 extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,

@@ -45,20 +45,35 @@ def _by_phase(ops, names) -> dict:
             "by_phase": {n: int(ops[i]) for i, n in enumerate(names)}}
 
 
-def plant_ops(cfg, x_true, x_meas, u, w, v, threads=None):
+def plant_ops(cfg, x_true, x_meas, u, w, v, threads=None, team=1):
     """((x_next, x_meas_next, Fd), counts) of K4's body on these CPU
     tensors (``ops.plant.plant_step_cuda``'s arguments); ``counts`` is
-    ``{"total": n, "by_phase": {...}}`` over :data:`PLANT_PHASES`."""
-    plant.check(x_true, x_meas, u, w, v, device_type="cpu")
-    outs, args = plant.prepare(cfg, x_true, x_meas, u, w, v)
+    ``{"total": n, "by_phase": {...}, "depth": {...}}`` over
+    :data:`PLANT_PHASES`.  ``team`` 1 (the default) runs the reference
+    body ``plant_body``, whose count is the function's; ``team`` 4 runs the
+    team body ``plant_team``, which computes both sides of every select and
+    every lane's part.  ``depth`` is the longest chain of
+    dependent operations over the scenarios (``csrc/op_count.h``):
+    ``"period"`` to any output, ``"by_phase"`` the deepest value each phase
+    reaches from the inputs, and ``"per_stage"`` the RK4's depth over its
+    4 x substeps evaluations of rhs."""
+    plant.check(x_true, x_meas, u, w, v, device_type="cpu", team=team)
+    outs, args = plant.prepare(cfg, x_true, x_meas, u, w, v, team)
     dtype = "f32" if x_true.dtype == torch.float32 else "f64"
     ops = (ctypes.c_ulonglong * 8)()
+    depth = (ctypes.c_ulonglong * 8)()
     fn = _fn(f"fct_plant_ops_{dtype}",
              plant._ARGTYPES[:-1]
-             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)))
-    if fn(*args, _threads(threads), ops) != 0:
+             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong),
+                ctypes.POINTER(ctypes.c_ulonglong)))
+    if fn(*args, _threads(threads), ops, depth) != 0:
         raise ValueError("fct_plant_ops refused its arguments")
-    return outs, _by_phase(ops, PLANT_PHASES)
+    counts = _by_phase(ops, PLANT_PHASES)
+    by_phase = {n: int(depth[i]) for i, n in enumerate(PLANT_PHASES)}
+    counts["depth"] = {
+        "period": max(by_phase.values()), "by_phase": by_phase,
+        "per_stage": by_phase["RK4"] / (4 * cfg.substeps)}
+    return outs, counts
 
 
 def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None,

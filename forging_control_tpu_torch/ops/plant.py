@@ -12,10 +12,13 @@ kernel.  Three functions:
 * :func:`plant_step_torch` — the plain version: the tensor code of the
   closed loop, the CPU path, and the reference of the kernel on the card;
 * :func:`plant_step_cuda` — the wrapper of the hand-written CUDA kernel
-  ``csrc/plant.cu`` (one thread per scenario; the body is
-  ``csrc/bodies.cuh`` ``plant_body`` on ``csrc/press_dual.cuh``).  It checks
-  its inputs, allocates the outputs, launches on the current stream and
-  counts its launches in ``plant_step_cuda.launches``;
+  ``csrc/plant.cu``: a team of four lanes per scenario (the body is
+  ``csrc/bodies.cuh`` ``plant_team`` on ``csrc/press_dual.cuh``), or, with
+  ``team=1``, one thread per scenario through the reference body
+  ``plant_body``, which gives the same bits.  It checks its inputs,
+  allocates the outputs, launches on the current stream and counts its
+  launches in ``plant_step_cuda.launches`` (:func:`sqrt_cuda` exposes the
+  team body's square root for the card's check);
 * :func:`plant_step` — dispatch: the kernel on a card, the plain version on
   the CPU and wherever autograd records through the step (plant-in-loop
   training backpropagates through the plant; the kernel has no backward).
@@ -30,6 +33,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from . import build
@@ -38,6 +42,10 @@ from ..integrate.rk4 import rk4_step
 from ..physics import press
 
 VARIANTS = {"raw": 0, "smooth": 1, "clamp": 2}
+# Lanes of one warp a scenario: 1 runs the one-thread reference body
+# (plant_body), 4 the team body (plant_team), the default.
+TEAMS = (1, 4)
+TEAM = 4
 
 
 class PressParamsC(ctypes.Structure):
@@ -72,6 +80,46 @@ def press_params_c(params: press.PressParams) -> PressParamsC:
         lin_den=math.sqrt(s * p.eps_q), v1h=p.V1_0 / 2.0, v2h=p.V2_0 / 2.0,
         smooth_eps=press._SMOOTH_EPS, A_m1=p.A_spread - 1.0,
         M2_m1=p.M2 - 1.0, M3_m1=p.M3 - 1.0)
+
+
+# The press constants of the team body (csrc/bodies.cuh PlantConsts), in
+# its order: PressParamsC fields rounded to the dtype, then each number that
+# the body divides by (divc) with its reciprocal in the dtype.
+_CONST_FIELDS = (
+    "H0", "W0", "B0", "eps_y", "y_hi", "A_spread", "MU", "K", "M0",
+    "exp_m1t", "M2", "M3", "M4", "FT", "s_orf", "eps_q", "coeff", "PS", "PT",
+    "v1h", "v2h", "A1", "A2", "KL_1", "KL_2", "c_p1", "c_p2", "B", "KB", "G",
+    "smooth_eps")
+_DIVISORS = ("half", "lin_den", "two", "three", "four", "M", "T1")
+
+
+@functools.lru_cache(maxsize=None)
+def plant_consts(params: press.PressParams, dt: float, substeps: int,
+                 dtype: torch.dtype) -> np.ndarray:
+    """``PlantConsts`` of ``csrc/bodies.cuh`` for the team body, as a
+    contiguous array of ``dtype``: each value rounded to the dtype as the
+    body would round it (``T(x)`` of a double, to nearest), each divisor's
+    reciprocal ``T(1) / T(c)`` (the dtype's correctly rounded division,
+    which is the card's), and the RK4 steps ``0.5 h``, ``h`` and ``h / 6``
+    with ``h = dt / substeps`` in double, as ``rk4_step`` computes them.
+    Cached, so the array outlives every launch that points to it (and
+    :func:`prepare` reads its address from :func:`_plant_consts_at`)."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    P = press_params_c(params)
+    divisors = {"half": 0.5, "lin_den": P.lin_den, "two": 2.0, "three": 3.0,
+                "four": 4.0, "M": P.M, "T1": P.T1}
+    values = [np_dtype(getattr(P, f)) for f in _CONST_FIELDS]
+    for name in _DIVISORS:
+        c = np_dtype(divisors[name])
+        values += [c, np_dtype(1) / c]
+    h = dt / substeps
+    values += [np_dtype(0.5 * h), np_dtype(h), np_dtype(h / 6.0)]
+    return np.array(values, dtype=np_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _plant_consts_at(params, dt, substeps, dtype) -> int:
+    return plant_consts(params, dt, substeps, dtype).ctypes.data
 
 
 class PlantCfgC(ctypes.Structure):
@@ -115,14 +163,19 @@ def plant_step_torch(cfg, x_true, x_meas, u, w, v):
 
 
 _SYMBOLS = {torch.float32: "fct_plant_f32", torch.float64: "fct_plant_f64"}
-_ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p)
 
 
-def check(x_true, x_meas, u, w, v, device_type: str = "cuda") -> None:
+def check(x_true, x_meas, u, w, v, device_type: str = "cuda",
+          team: int = TEAM) -> None:
     """Raise unless the inputs are what the kernel takes: tensors on one
     ``device_type`` device of one dtype (float32 or float64), x_true and
     x_meas (B, 5), u (B,), w and v (B, 5) or None, contiguous, none
-    requiring a gradient."""
+    requiring a gradient; ``team`` one of :data:`TEAMS`."""
+    if team not in TEAMS:
+        raise ValueError(f"plant_step_cuda: team must be one of {TEAMS}, "
+                         f"got {team}")
     named = {"x_true": x_true, "x_meas": x_meas, "u": u, "w": w, "v": v}
     given = {k: a for k, a in named.items() if a is not None}
     for k, a in given.items():
@@ -153,9 +206,10 @@ def check(x_true, x_meas, u, w, v, device_type: str = "cuda") -> None:
                                "tensors that do not require a gradient")
 
 
-def prepare(cfg, x_true, x_meas, u, w, v):
+def prepare(cfg, x_true, x_meas, u, w, v, team: int = TEAM):
     """The outputs (x_next, x_meas_next, Fd), allocated, and the C
-    arguments of one launch without the stream."""
+    arguments of one launch by teams of ``team`` lanes, without the
+    stream."""
     B = x_true.shape[0]
     x_next = torch.empty_like(x_true)
     x_meas_next = torch.empty_like(x_true)
@@ -164,28 +218,48 @@ def prepare(cfg, x_true, x_meas, u, w, v):
     C = _plant_cfg_c(float(cfg.dt), int(cfg.substeps), cfg.variant,
                      None if cfg.state_clip is None
                      else tuple(float(s) for s in cfg.state_clip))
+    K = _plant_consts_at(cfg.params, float(cfg.dt), int(cfg.substeps),
+                         x_true.dtype)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    args = (ctypes.addressof(P), ctypes.addressof(C), x_true.data_ptr(),
-            x_meas.data_ptr(), u.data_ptr(), ptr(w), ptr(v),
-            x_next.data_ptr(), x_meas_next.data_ptr(), Fd.data_ptr(), B)
+    args = (ctypes.addressof(P), ctypes.addressof(C), K,
+            x_true.data_ptr(), x_meas.data_ptr(), u.data_ptr(), ptr(w),
+            ptr(v), x_next.data_ptr(), x_meas_next.data_ptr(),
+            Fd.data_ptr(), B, team)
     return (x_next, x_meas_next, Fd), args
 
 
-def plant_step_cuda(cfg, x_true, x_meas, u, w, v):
+def plant_step_cuda(cfg, x_true, x_meas, u, w, v, team: int = TEAM):
     """Kernel K4: (x_next, x_meas_next, Fd) as :func:`plant_step_torch`
     computes them, for contiguous CUDA tensors of one dtype that do not
-    require a gradient (see :func:`check`)."""
-    check(x_true, x_meas, u, w, v)
+    require a gradient (see :func:`check`), by teams of ``team`` lanes a
+    scenario (1: one thread through the reference body)."""
+    check(x_true, x_meas, u, w, v, team=team)
     if cfg.substeps < 1:
         raise ValueError(f"substeps must be at least 1, got {cfg.substeps}")
     fn = build.entry("plant", _SYMBOLS[x_true.dtype], _ARGTYPES)
-    outs, args = prepare(cfg, x_true, x_meas, u, w, v)
+    outs, args = prepare(cfg, x_true, x_meas, u, w, v, team)
     build.launch("plant", fn, x_true.device, *args)
     plant_step_cuda.launches += 1
     return outs
 
 
 plant_step_cuda.launches = 0
+
+
+def sqrt_cuda(x):
+    """The kernel body's float32 square root (``csrc/bodies.cuh``
+    ``sqrt_rn``, sqrtf's bits without its branch) of a contiguous float32
+    CUDA tensor: what the card's check holds against ``torch.sqrt``."""
+    if not (isinstance(x, torch.Tensor) and x.is_cuda
+            and x.dtype == torch.float32 and x.is_contiguous()):
+        raise ValueError("sqrt_cuda takes a contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    fn = build.entry("plant", "fct_plant_sqrt_f32",
+                     (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p))
+    build.launch("plant", fn, x.device, x.data_ptr(), out.data_ptr(),
+                 x.numel())
+    return out
 
 
 def _records(*tensors) -> bool:

@@ -257,23 +257,31 @@ def _plant_inputs(rng, B, dtype, clip):
 
 @pytest.mark.gpu
 def test_torch_plant_kernel_matches_plain_on_gpu():
-    """K4 vs its plain version: the three variants, noise, the state clip
-    with NaN and inf states, the gate and the kink; float64 within 1e-9
-    and float32 within 1e-4 of each value's magnitude (bitwise so far:
-    both round every operation alike); the wrapper's checks."""
+    """K4 at both team sizes (G = 4, and G = 1, the one-thread body) vs
+    its plain version, bit for bit: float64 and float32, B = 1, 2 and 37, the
+    three variants, noise and no noise, the state clip with NaN and inf
+    states, the gate and the kink; the wrapper's checks."""
     _need_card()
     rng = np.random.RandomState(7)
-    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
-        for variant in ("raw", "smooth", "clamp"):
-            for clip in (None, (0.12, 0.6, 3.3e7, 3.3e7, 0.2)):
-                cfg = cl.LoopConfig(variant=variant, state_clip=clip)
-                t = _plant_inputs(rng, 37, dtype, clip is not None)
-                got = plant.plant_step_cuda(cfg, *t)
-                want = plant.plant_step_torch(cfg, *t)
-                torch.cuda.synchronize()
-                for g, w in zip(got, want):
-                    assert torch.isfinite(g).all()
-                    assert ((g - w).abs() / (1 + w.abs())).max() <= tol
+    for dtype in (torch.float64, torch.float32):
+        for B in (37, 2, 1):
+            for variant in ("raw", "smooth", "clamp"):
+                for clip in (None, (0.12, 0.6, 3.3e7, 3.3e7, 0.2)):
+                    cfg = cl.LoopConfig(variant=variant, state_clip=clip)
+                    t = _plant_inputs(rng, max(B, 5), dtype,
+                                      clip is not None)
+                    t = [a[:B].contiguous() for a in t]
+                    for noise in (True, False):
+                        if not noise:
+                            t[3] = t[4] = None
+                        want = plant.plant_step_torch(cfg, *t)
+                        for G in plant.TEAMS:
+                            got = plant.plant_step_cuda(cfg, *t, team=G)
+                            torch.cuda.synchronize()
+                            for g, w in zip(got, want):
+                                assert torch.isfinite(g).all()
+                                assert torch.equal(g, w), (G, dtype, B,
+                                                           variant, clip)
     x, xm, u, w, v = _plant_inputs(rng, 8, torch.float64, False)
     cfg = cl.LoopConfig()
     with pytest.raises(ValueError, match="cuda tensors"):
@@ -284,6 +292,26 @@ def test_torch_plant_kernel_matches_plain_on_gpu():
         plant.plant_step_cuda(cfg, x, xm, u, w.t().contiguous().t(), v)
     with pytest.raises(RuntimeError, match="backward"):
         plant.plant_step_cuda(cfg, x, xm, u.requires_grad_(), w, v)
+    with pytest.raises(ValueError, match="team"):
+        plant.plant_step_cuda(cfg, x, xm, u.detach(), w, v, team=3)
+
+
+@pytest.mark.gpu
+def test_torch_plant_sqrt_matches_sqrtf_on_gpu():
+    """K4's branch-free float32 square root equals torch.sqrt (the card's
+    sqrtf) bit for bit: every 256th bit pattern, both signs, and the
+    special values; NaN where sqrtf gives NaN."""
+    _need_card()
+    bits = torch.arange(0, 2 ** 32, 256, dtype=torch.int64, device="cuda")
+    x = (bits - 2 ** 31).to(torch.int32).view(torch.float32)
+    x = torch.cat([x, torch.tensor([0.0, -0.0, np.inf, -np.inf, np.nan,
+                                    1e-45, 2.0 ** -101, 2.0 ** -102],
+                                   device="cuda")])
+    got, want = plant.sqrt_cuda(x), torch.sqrt(x)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
 
 
 @pytest.mark.gpu

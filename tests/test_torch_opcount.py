@@ -1,5 +1,6 @@
 """The operation counts of kernels K4 and K5 (``ops.opcount``): their
-bodies on the CPU on the counting scalar of ``csrc/op_count.h``.
+bodies on the CPU on the counting scalar of ``csrc/op_count.h``, and K4's
+longest dependent chain.
 
 The counted run computes what the host build computes, bit for bit, and
 its count does not depend on how the scenarios are split over threads.
@@ -15,7 +16,7 @@ import torch
 import torch_host_kernels as hk
 from forging_control_tpu_torch import bench
 from forging_control_tpu_torch.loop import closed_loop as cl
-from forging_control_tpu_torch.ops import opcount
+from forging_control_tpu_torch.ops import opcount, plant
 from forging_control_tpu_torch.physics import press
 from forging_control_tpu_torch.solver import riccati
 
@@ -33,17 +34,59 @@ def _plant_inputs(B, seed):
 
 @pytest.mark.parametrize("variant", ["raw", "smooth", "clamp"])
 def test_torch_opcount_plant_outputs_equal_host_build(variant):
+    """Both bodies (team 1: plant_body; 4: the team body)."""
     hk.lib()
     cfg = cl.LoopConfig(variant=variant, state_clip=(0.12, 0.6, 3.3e7,
                                                      3.3e7, 0.2))
     t = _plant_inputs(24, 1)
-    outs, one = opcount.plant_ops(cfg, *t, threads=1)
-    for got, want in zip(outs, hk.plant_host(cfg, *t)):
-        assert torch.equal(got, want)
-    _, three = opcount.plant_ops(cfg, *t, threads=3)
-    assert one["total"] == three["total"] > 0
-    assert one["by_phase"] == three["by_phase"]
-    assert sum(one["by_phase"].values()) == one["total"]
+    for team in plant.TEAMS:
+        outs, one = opcount.plant_ops(cfg, *t, threads=1, team=team)
+        for got, want in zip(outs, hk.plant_host(cfg, *t, team=team)):
+            assert torch.equal(got, want)
+        _, three = opcount.plant_ops(cfg, *t, threads=3, team=team)
+        assert one == three and one["total"] > 0
+        assert sum(one["by_phase"].values()) == one["total"]
+
+
+# K4's operations and dependent chain at a fixed input (_plant_inputs(24,
+# 1), float64, the state clip), as the one-thread body plant_body gives
+# them: the count is the function's (the bound's numerator), which the
+# kernel's body may not move.  Its depth is the longest chain of counted
+# operations to any output.
+PINNED_PLANT = {
+    "raw": (32455, {"forging force": 352, "RK4": 31743,
+                    "clip and measurement": 360},
+            {"forging force": 23, "RK4": 269, "clip and measurement": 272}),
+    "smooth": (36527, {"forging force": 352, "RK4": 35575,
+                       "clip and measurement": 600},
+               {"forging force": 23, "RK4": 278,
+                "clip and measurement": 286}),
+    "clamp": (33215, {"forging force": 352, "RK4": 32503,
+                      "clip and measurement": 360},
+              {"forging force": 23, "RK4": 269, "clip and measurement": 272}),
+}
+
+
+@pytest.mark.parametrize("variant", ["raw", "smooth", "clamp"])
+def test_torch_opcount_plant_pinned_count_and_depth(variant):
+    """plant_body's count by phase and depth by phase at the pinned input;
+    the kernel's body (every G) reaches the same depth: its selects wait
+    for both sides, and the deepest chain is a branch that the pinned
+    input takes anyway.  The team body runs more operations than the
+    function needs (both sides of every select, and each lane's part)."""
+    hk.lib()
+    cfg = cl.LoopConfig(variant=variant, state_clip=(0.12, 0.6, 3.3e7,
+                                                     3.3e7, 0.2))
+    t = _plant_inputs(24, 1)
+    total, by_phase, depth = PINNED_PLANT[variant]
+    _, counts = opcount.plant_ops(cfg, *t)
+    assert counts["total"] == total and counts["by_phase"] == by_phase
+    assert counts["depth"] == {
+        "period": max(depth.values()), "by_phase": depth,
+        "per_stage": depth["RK4"] / 16}
+    _, executed = opcount.plant_ops(cfg, *t, team=4)
+    assert executed["depth"] == counts["depth"]
+    assert executed["total"] > total
 
 
 def test_torch_opcount_forging_force_only_where_its_gate_opens():

@@ -40,10 +40,11 @@ def _fn(symbol, argtypes):
     return fn
 
 
-def plant_host(cfg, x_true, x_meas, u, w, v):
-    """(x_next, x_meas_next, Fd) from K4's body on the CPU."""
-    plant.check(x_true, x_meas, u, w, v, device_type="cpu")
-    outs, args = plant.prepare(cfg, x_true, x_meas, u, w, v)
+def plant_host(cfg, x_true, x_meas, u, w, v, team=plant.TEAM):
+    """(x_next, x_meas_next, Fd) from K4's body on the CPU, by a team of
+    ``team`` lanes a scenario (1: the one-thread reference body)."""
+    plant.check(x_true, x_meas, u, w, v, device_type="cpu", team=team)
+    outs, args = plant.prepare(cfg, x_true, x_meas, u, w, v, team)
     rc = _fn(plant._SYMBOLS[x_true.dtype], plant._ARGTYPES[:-1])(*args)
     assert rc == 0
     return outs
