@@ -46,6 +46,7 @@ from ..device import resolve_device
 from ..ops import plant
 from ..physics import press
 from ..solver import riccati, sqp
+from ..utils.profiling import annotate
 from . import graph as graph_mod
 
 
@@ -345,7 +346,12 @@ class _GraphStepper:
     any given noise) into the static inputs and replays once.  The carry it
     returns holds the static buffers themselves, as a donated JAX carry
     does: the next call overwrites them, so a carry that an earlier call
-    consumed raises."""
+    consumed raises.
+
+    Spans (``utils.profiling``): a call is ``stepper``, and the writes of
+    its inputs before the replay ``stepper.inputs``, both profiler ranges
+    only; the first call's eager period and capture are the kept
+    ``period.first``."""
 
     def __init__(self, loop_cfg, controller, carry0, noise, dtype, device):
         self.loop_cfg, self.noise = loop_cfg, noise
@@ -358,32 +364,45 @@ class _GraphStepper:
             graph_mod.copy_into(self.period.state, carry0)
 
     def __call__(self, carry, ref, process_noise=None, meas_noise=None):
-        if carry is not self.live:
-            raise RuntimeError(
-                "this stepper carry was consumed by an earlier step (the "
-                "card's stepper donates it: its buffers now hold a later "
-                "state); pass the carry that the last step returned")
-        w = self.noise(self.loop_cfg.process_std, process_noise, "process")
-        v = self.noise(self.loop_cfg.meas_std, meas_noise, "measurement")
-        if self.period is None:
-            ref = torch.as_tensor(ref, device=self.device).to(
-                self.dtype).reshape(1)
-            state, inputs = graph_mod.tree_map(
-                lambda a: a.contiguous(), (carry, (ref, w, v)))
-            state, (_, u, _, _) = self.body(state, inputs)
+        with annotate("stepper"):
+            if carry is not self.live:
+                raise RuntimeError(
+                    "this stepper carry was consumed by an earlier step (the "
+                    "card's stepper donates it: its buffers now hold a later "
+                    "state); pass the carry that the last step returned")
+            if self.period is None:
+                u = self._first(carry, ref, process_noise, meas_noise)
+            else:
+                with annotate("stepper.inputs"):
+                    static_ref, static_w, static_v = self.period.inputs
+                    static_w.copy_(self.noise(self.loop_cfg.process_std,
+                                              process_noise, "process"))
+                    static_v.copy_(self.noise(self.loop_cfg.meas_std,
+                                              meas_noise, "measurement"))
+                    if isinstance(ref, torch.Tensor):
+                        static_ref.copy_(ref.reshape(1))
+                    else:
+                        static_ref.fill_(float(ref))
+                u = self.period()[1].clone()
+            self.live = StepperCarry(*self.period.state)
+        return self.live, u[0]
+
+    def _first(self, carry, ref, process_noise, meas_noise):
+        """The first call: one eager period, then its capture."""
+        with annotate("period.first"):
+            with annotate("period.eager"):
+                w = self.noise(self.loop_cfg.process_std, process_noise,
+                               "process")
+                v = self.noise(self.loop_cfg.meas_std, meas_noise,
+                               "measurement")
+                ref = torch.as_tensor(ref, device=self.device).to(
+                    self.dtype).reshape(1)
+                state, inputs = graph_mod.tree_map(
+                    lambda a: a.contiguous(), (carry, (ref, w, v)))
+                state, (_, u, _, _) = self.body(state, inputs)
             self.period = graph_mod.Period(self.body, state, inputs)
             self.period.capture()
-        else:
-            static_ref, static_w, static_v = self.period.inputs
-            if isinstance(ref, torch.Tensor):
-                static_ref.copy_(ref.reshape(1))
-            else:
-                static_ref.fill_(float(ref))
-            static_w.copy_(w)
-            static_v.copy_(v)
-            u = self.period()[1].clone()
-        self.live = StepperCarry(*self.period.state)
-        return self.live, u[0]
+        return u
 
 
 def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
@@ -425,10 +444,13 @@ def make_stepper(loop_cfg: LoopConfig, controller, x0=None,
                              device), carry0
 
     def step(carry: StepperCarry, ref, process_noise=None, meas_noise=None):
-        ref = torch.as_tensor(ref, device=device).to(dtype).reshape(1)
-        w = noise(loop_cfg.process_std, process_noise, "process")
-        v = noise(loop_cfg.meas_std, meas_noise, "measurement")
-        carry, _, _ = _step(loop_cfg, controller, carry, ref, w, v)
+        with annotate("stepper"):
+            with annotate("stepper.inputs"):
+                ref = torch.as_tensor(ref, device=device).to(dtype).reshape(
+                    1)
+                w = noise(loop_cfg.process_std, process_noise, "process")
+                v = noise(loop_cfg.meas_std, meas_noise, "measurement")
+            carry, _, _ = _step(loop_cfg, controller, carry, ref, w, v)
         return carry, carry.u_prev[0]
 
     return step, carry0

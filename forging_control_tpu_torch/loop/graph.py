@@ -22,7 +22,9 @@ it tells whether autograd records through the body (then the run stays
 eager), and it is the capture's warm-up (kernels loaded, cuBLAS handles
 made, a policy's weight copies cached).  Then the body is captured from the
 state it left, and the other periods replay.  Given a captured period (a
-cache's), every period replays.
+cache's), every period replays.  That first period and its capture are
+the kept span ``period.first``, its eager period ``period.eager``
+(``utils.profiling``).
 
 The body must create no tensor from host data, read no scalar back and
 call nothing that synchronises (``dual.constants`` and fill ops make its
@@ -44,9 +46,10 @@ eager step.
 from __future__ import annotations
 
 import gc
-import time
 
 import torch
+
+from ..utils.profiling import annotate
 
 # One side stream per device for every capture (a CUDA graph is captured
 # on a stream other than the default one): cuBLAS keeps a workspace per
@@ -131,7 +134,9 @@ class Period:
     inputs into ``inputs`` (:func:`copy_into`) before a call, read the
     state after it.  ``stats`` holds, once captured, the seconds spent
     dispatching the body into the capture (``capture_s``), ending the
-    capture and instantiating the graph (``instantiate_s``), the device
+    capture and instantiating the graph (``instantiate_s``), both read from
+    the kept spans ``graph.capture`` and ``graph.instantiate``
+    (``utils.profiling.spans``), the device
     memory reserved while capturing, the graph's private pool
     (``pool_bytes``), and the kernel launches of one replay by wrapper
     (``launches``)."""
@@ -176,14 +181,15 @@ class Period:
         # while capturing.
         gc.collect()
         gc.disable()
+        instantiating = annotate("graph.instantiate")
         try:
             with torch.cuda.graph(graph, stream=side):
-                t0 = time.perf_counter()
-                reserved = torch.cuda.memory_reserved(self.device)
-                outputs = self._run()
-                t1 = time.perf_counter()
-            t2 = time.perf_counter()
+                with annotate("graph.capture") as capture:
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    outputs = self._run()
+                instantiate = instantiating.__enter__()
         finally:
+            instantiating.__exit__(None, None, None)
             gc.enable()
         after = _counts()
         self._delta = {k: after[k] - before[k] for k in after
@@ -191,7 +197,8 @@ class Period:
         _add_counts({k: -n for k, n in self._delta.items()})
         self.graph, self.outputs = graph, outputs
         self.stats = {
-            "capture_s": t1 - t0, "instantiate_s": t2 - t1,
+            "capture_s": capture["end"] - capture["start"],
+            "instantiate_s": instantiate["end"] - instantiate["start"],
             "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
             "launches": {(k[0] + " " + k[1]) if isinstance(k, tuple)
                          else k.__name__: n for k, n in self._delta.items()}}
@@ -267,18 +274,21 @@ def run(body, state, inputs, steps: int, *, graph, period=None):
         period = None
     outs = []
     if period is None:
-        if graph is not False:
-            state, first = tree_map(lambda a: a.contiguous(), (state, first))
-        state, out = body(state, first)
-        outs.append(out)
-        if graph is not False and records((state, out)):
-            if graph:
-                raise RuntimeError("autograd records through the period: "
-                                   "it cannot be captured; run with "
-                                   "graph=False")
-        elif graph is not False:
-            period = Period(body, state, first)
-            period.capture()
+        with annotate("period.first"):
+            if graph is not False:
+                state, first = tree_map(lambda a: a.contiguous(),
+                                        (state, first))
+            with annotate("period.eager"):
+                state, out = body(state, first)
+            outs.append(out)
+            if graph is not False and records((state, out)):
+                if graph:
+                    raise RuntimeError("autograd records through the "
+                                       "period: it cannot be captured; run "
+                                       "with graph=False")
+            elif graph is not False:
+                period = Period(body, state, first)
+                period.capture()
         if period is None:
             for t in range(1, steps):
                 state, out = body(state, inputs(t))

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import annotate
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -91,9 +93,19 @@ def _target(name: str) -> tuple[Path, Path]:
 
 def build_all(names) -> dict[str, Built]:
     """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together; then load them all."""
+    source, all started together; then load them all.  The compile and load
+    of the sources not loaded yet is the kept span ``kernels.build``, its
+    ``args`` their names (``utils.profiling``)."""
     names = list(names)
     todo = [n for n in names if n not in _loaded]
+    if todo:
+        with annotate("kernels.build", " ".join(todo)):
+            _build(todo)
+    return {n: _loaded[n] for n in names}
+
+
+def _build(todo) -> None:
+    """Compile the sources of ``todo`` that are not built, then load all."""
     pending = []
     for name in todo:
         src, out = _target(name)
@@ -125,7 +137,6 @@ def build_all(names) -> dict[str, Built]:
             name=name, path=out, lib=ctypes.CDLL(str(out)),
             seconds=seconds.get(name, 0.0),
             log=log_path.read_text() if log_path.exists() else "")
-    return {n: _loaded[n] for n in names}
 
 
 def build_host() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""Profiling hooks.
+"""Profiling hooks and the program's spans.
 
 Port of ``forging_control_tpu/utils/profiling.py``.  The reference brackets
 every controller step with ``do_mpc.tools.Timer`` and stores IPOPT's
@@ -6,18 +6,47 @@ wall-time phases (SURVEY.md section 5).  Here:
 
 * :func:`trace` captures a ``torch.profiler`` trace of a block and writes
   it to ``log_dir`` (Chrome/Perfetto JSON, TensorBoard's layout);
-* :func:`annotate` names a region in such a trace
-  (``torch.profiler.record_function``);
+* :func:`annotate` is the program's span: a named region of a trace, and
+  for a set-up span a record that :func:`spans` returns;
 * :func:`solver_phase_breakdown` times the condensed GN-SQP solve's NLP
   phases one by one over a scenario batch.
+
+A span costs what its use needs.  With no profiler session running, a span
+of the hot path (a control period's) is a set lookup and a flag check, and
+nothing more.
+While a ``torch.profiler`` session runs, every span is a
+``record_function`` range, which the profiler stamps on the clock of the
+device's operations, so a trace shows it beside the kernels.  The set-up
+spans (:data:`SETUP_SPANS`: a first period, a capture, a kernel build; a
+handful a process) are also always kept, with their start and end on
+``time.perf_counter`` and the name of the kept span they lie in, in a list
+of at most :data:`SPANS_KEPT`, oldest dropped first.  Spans are those of
+one thread: the parent is the innermost kept span open at the start.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
+
+# The spans that mark set-up, kept whether or not a profiler runs:
+#   period.first       a new graph key's first period, from the eager start
+#                      to the end of the graph's instantiation
+#   period.eager       its eager period
+#   graph.capture      Period.capture's dispatch of the body into the capture
+#   graph.instantiate  the end of the capture and the graph's instantiation
+#   kernels.build      ops.build.build_all's compile and load (args: the
+#                      sources)
+SETUP_SPANS = frozenset({"period.first", "period.eager", "graph.capture",
+                         "graph.instantiate", "kernels.build"})
+SPANS_KEPT = 256
+_kept: collections.deque = collections.deque(maxlen=SPANS_KEPT)
+_open: list = []            # the kept spans open now, innermost last
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,9 +65,58 @@ def trace(log_dir: str = "torch-trace"):
         yield log_dir
 
 
-def annotate(name: str):
-    """Named region (shows up in traces)."""
-    return torch.profiler.record_function(name)
+class _Span:
+    """A span that does something: a profiler range while a session runs,
+    and for a set-up span a kept record, which ``with`` gives (else
+    None)."""
+
+    __slots__ = ("name", "args", "keep", "record", "_range")
+
+    def __init__(self, name: str, args: str | None, keep: bool):
+        self.name, self.args, self.keep = name, args, keep
+        self.record = self._range = None
+
+    def __enter__(self):
+        if self.keep:
+            self.record = {"name": self.name, "start": time.perf_counter(),
+                           "end": None,
+                           "parent": _open[-1]["name"] if _open else None,
+                           "args": self.args}
+            _kept.append(self.record)
+            _open.append(self.record)
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name, self.args)
+            self._range.__enter__()
+        return self.record
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self.record is not None:
+            self.record["end"] = time.perf_counter()
+            _open.remove(self.record)
+        return False
+
+
+def annotate(name: str, args: str | None = None):
+    """The span ``name`` around a block (``with annotate(name): ...``).
+    With no profiler session running, a span not in :data:`SETUP_SPANS`
+    does nothing; otherwise it is a ``record_function`` range (``args`` its
+    arguments) while a session runs, and a set-up span is kept
+    (:func:`spans`).  ``with`` gives the kept record, whose ``start`` and
+    ``end`` are set when the block is entered and left, or None."""
+    keep = name in SETUP_SPANS
+    if keep or _profiler._is_profiler_enabled:
+        return _Span(name, args, keep)
+    return _OFF
+
+
+def spans() -> list[dict]:
+    """Copies of the kept set-up spans, oldest first: ``{"name", "start",
+    "end", "parent", "args"}``, times in seconds on ``time.perf_counter``
+    (``end`` None while open), ``parent`` the name of the kept span it lies
+    in or None."""
+    return [dict(s) for s in _kept]
 
 
 def _op_counter():
