@@ -10,11 +10,12 @@ plus ``device`` (the card's name and power limit), ``steps``, ``kernels``
 ``kernel_launches`` (their launches in one T-step run) and
 ``kernel_check``.
 
-The kernels that run, per backend, on a card: the SQP launches the small
-Cholesky solve B1 (``ops/smallchol.py``) gn x al times a step; the AL-iLQR
-launches its whole solve K5 (``ops/ilqr.py``) once a step; both launch the
-plant step K4 (``ops/plant.py``) once a step.  On the CPU every one of them
-runs its plain version.
+The kernels that run, per backend, on a card: the SQP launches its
+Gauss-Newton build (``ops/sqp.py``), the small Cholesky solve B1
+(``ops/smallchol.py``) and its line search gn x al times a step each; the
+AL-iLQR launches its whole solve K5 (``ops/ilqr.py``) once a step; both
+launch the plant step K4 (``ops/plant.py``) once a step.  On the CPU every
+one of them runs its plain version.
 
 Before it times anything, a run through the kernels (``linsolve="kernel"``)
 takes one control step at B = 64 through the backend's kernel and through
@@ -47,6 +48,7 @@ from .loop.closed_loop import LoopConfig, MPCController, run_batch
 from .ops.ilqr import ilqr_cuda
 from .ops.plant import plant_step_cuda
 from .ops.smallchol import chol_solve_cuda
+from .ops.sqp import sqp_build_cuda, sqp_search_cuda
 from .physics.press import X0_REFERENCE
 from .refgen import streams
 from .solver.sqp import MPCConfig
@@ -161,9 +163,11 @@ def far_share(a, b, tol) -> float:
     return float(far.double().mean())
 
 # The hand-written kernels of each backend's path on a card.
-KERNELS = {"sqp": ("chol_solve", "plant"), "ilqr": ("ilqr", "plant")}
+KERNELS = {"sqp": ("sqp_build", "chol_solve", "sqp_search", "plant"),
+           "ilqr": ("ilqr", "plant")}
 _WRAPPERS = {"chol_solve": chol_solve_cuda, "ilqr": ilqr_cuda,
-             "plant": plant_step_cuda}
+             "plant": plant_step_cuda, "sqp_build": sqp_build_cuda,
+             "sqp_search": sqp_search_cuda}
 
 
 def _launches() -> dict:

@@ -1,11 +1,13 @@
-// The bodies of kernels K4 and K5 (bodies.cuh) on the CPU: the same C
-// interface as csrc/plant.cu and csrc/ilqr.cu, without the stream, each
-// scenario in turn (K4's team of four as arrays of its lanes' values, each
-// step run in lane order; K5's team of G lanes one lane after another
-// between its barriers, over a local buffer in place of shared memory), for
-// the tests; and the same bodies on op_count.h's counting scalar
-// (fct_plant_ops_*, fct_ilqr_ops_*), which give the operations that the
-// kernels need for given inputs (chip_smoke.py's bounds).  Built with g++
+// The bodies of kernels K4 and K5 (bodies.cuh) and of the SQP's build and
+// search (sqp_bodies.cuh) on the CPU: the same C interface as csrc/plant.cu,
+// csrc/ilqr.cu, csrc/sqp_build.cu and csrc/sqp_search.cu, without the
+// stream (and the teams a block holds), each scenario in turn (K4's team of
+// four as arrays of its lanes' values, each step run in lane order; the
+// other teams' lanes one after another between their barriers, over a local
+// buffer in place of shared memory), for the tests; and the same bodies on
+// op_count.h's counting scalar (fct_plant_ops_*, fct_ilqr_ops_*,
+// fct_sqp_build_ops_*, fct_sqp_search_ops_*), which give the operations
+// that the kernels need for given inputs (chip_smoke.py's bounds).  Built with g++
 // -O2 -ffp-contract=off (ops/build.py build_host) so that every multiply
 // and add rounds on its own, as PyTorch's CPU kernels do; no path of the
 // port calls it.
@@ -15,6 +17,7 @@
 
 #include "op_count.h"
 #include "bodies.cuh"
+#include "sqp_bodies.cuh"
 
 namespace {
 
@@ -289,7 +292,251 @@ int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
   return 0;
 }
 
+// A team of G lanes, G known at run time (the SQP's build and search), on
+// the CPU: each(f) runs every lane in lane order.
+struct TeamSerialN {
+  int G;
+  template <class F> void each(F&& f) const {
+    for (int lane = 0; lane < G; ++lane) f(lane);
+  }
+};
+
+// Whether the card's kernels take this configuration (sqp_build.cu and
+// sqp_search.cu launch, less the teams a block holds).
+inline bool sqp_takes(const fct::SqpCfg* c, int B, int G, bool build) {
+  return B >= 0 && c->N >= 1 && c->N <= 32 && (c->nc == 2 || c->nc == 4)
+         && c->substeps >= 1 && c->n_lad >= 0
+         && c->n_lad + 2 <= fct::kSqpMaxCand && G <= 32
+         && G >= (build ? c->N : 1);
+}
+
+// The build of scenarios lo..hi-1 by teams of G lanes, K input directions
+// a lane (the kernel's K = 1; the operation count's function takes one lane
+// with every direction).
+template <class T, int K>
+void sqp_build_scenarios(const fct::PressParams* P, const fct::SqpCfg* c,
+                         const fct::SqpIO<T>& io, int G, int al, int row,
+                         int lo, int hi) {
+  std::vector<T> sm(fct::sqp_build_fields(c->N, c->nc));
+  for (int b = lo; b < hi; ++b) {
+    std::fill(sm.begin(), sm.end(), T());
+    fct::sqp_build_team<T, K>(*P, *c, al, row, io, b, sm.data(),
+                              TeamSerialN{G}, G);
+  }
+}
+
+template <class T>
+void sqp_search_scenarios(const fct::PressParams* P, const fct::SqpCfg* c,
+                          const fct::SqpIO<T>& io, int G, int al, int row,
+                          int flags, int lo, int hi) {
+  std::vector<T> sm(fct::sqp_search_fields(c->n_lad + 2));
+  for (int b = lo; b < hi; ++b) {
+    std::fill(sm.begin(), sm.end(), T());
+    fct::sqp_search_team<T>(*P, *c, al, row, flags, io, b, sm.data(),
+                            TeamSerialN{G}, G);
+  }
+}
+
+// Values of each of the launch's 22 arrays (fct::SqpIO order) at B
+// scenarios; iters (12) is an int array.
+inline std::vector<long long> sqp_sizes(const fct::SqpCfg* c, int B) {
+  const long long N = c->N, ncon = (long long)c->nc * N;
+  const long long n_cand = c->n_lad + 2;
+  std::vector<long long> n = {5, 1, 1, N, ncon, N, ncon, 3 * N * N, 3 * N,
+                              3 * N, 4 + ncon, n_cand * ncon, 1, 1, 1, 1,
+                              (long long)c->trace_rows * 6, 1, 1, 1, 1, 1};
+  for (auto& x : n) x *= B;
+  return n;
+}
+
+// An SqpIO of counted scalars over copies of the launch's arrays, every
+// value an input (VAR); arrays that share a pointer share a copy.
+template <class F>
+struct CountedSqp {
+  std::vector<std::vector<fct::Counted<F>>> bufs;
+  std::vector<int> slot;
+  fct::SqpIO<fct::Counted<F>> io;
+  void* const* p;
+
+  CountedSqp(const fct::SqpCfg* c, void* const* ptrs, int B) : p(ptrs) {
+    const auto n = sqp_sizes(c, B);
+    slot.assign(fct::kSqpPointers, -1);
+    void* cp[fct::kSqpPointers];
+    for (int i = 0; i < fct::kSqpPointers; ++i) {
+      cp[i] = nullptr;
+      if (!p[i]) continue;
+      if (i == 12) {
+        cp[i] = p[i];
+        continue;
+      }
+      for (int j = 0; j < i; ++j)
+        if (p[j] == p[i] && slot[j] >= 0) slot[i] = slot[j];
+      if (slot[i] < 0) {
+        slot[i] = (int)bufs.size();
+        bufs.push_back(counted_in(static_cast<const F*>(p[i]), n[i]));
+      }
+      cp[i] = bufs[slot[i]].data();
+    }
+    io = fct::sqp_io<fct::Counted<F>>(cp);
+  }
+  // The values back into the launch's arrays.
+  void out() const {
+    for (int i = 0; i < fct::kSqpPointers; ++i)
+      if (slot[i] >= 0) counted_out(bufs[slot[i]], static_cast<F*>(p[i]));
+  }
+};
+
+// The build's body on counted scalars: the outputs as fct_sqp_build_<F>
+// gives them and the operations by phase (sqp_bodies.cuh: 0 the rollout,
+// 1 the residual rows and their sums, 2 g, H and the damped systems, 3 the
+// cost, |g|_inf, the objective and the trace).  ops: what the kernel runs,
+// a direction a lane, every lane its own values; fn_ops, unless null:
+// the function's, one lane with every direction (K = kSqpCountTangents:
+// the values and what the tangent rules derive from them once, as
+// dual.linearize's single dual of N directions); val_ops, unless null: one
+// lane's values alone (sqp_build_lane at K = 0, without lane 0's sums),
+// what each further lane computes again.
+constexpr int kSqpCountTangents = 32;
+
+template <class F>
+int sqp_build_ops(const fct::PressParams* P, const fct::SqpCfg* c,
+                  void* const* p, int B, int G, int al, int row,
+                  int threads, unsigned long long* ops,
+                  unsigned long long* fn_ops, unsigned long long* val_ops) {
+  typedef fct::Counted<F> C;
+  if (!sqp_takes(c, B, G, true)) return 1;
+  CountedSqp<F> cs(c, p, B);
+  counted_chunks(B, threads, ops, [&](int lo, int hi) {
+    sqp_build_scenarios<C, 1>(P, c, cs.io, G, al, row, lo, hi);
+  });
+  if (fn_ops) {
+    CountedSqp<F> again(c, p, B);
+    counted_chunks(B, threads, fn_ops, [&](int lo, int hi) {
+      sqp_build_scenarios<C, kSqpCountTangents>(P, c, again.io, 1, al, row,
+                                                lo, hi);
+    });
+  }
+  if (val_ops) {
+    const int N = c->N;
+    CountedSqp<F> again(c, p, B);
+    counted_chunks(B, threads, val_ops, [&](int lo, int hi) {
+      const C mu = fct::sqp_mu<C>(*c, al);
+      const C sq = fct::m_sqrt(mu / C(2));
+      C dummy;
+      for (int b = lo; b < hi; ++b)
+        fct::sqp_build_lane<C, 0>(
+            *P, *c, mu, sq, again.io.x0 + 5LL * b, again.io.ref[b],
+            again.io.u_prev[b], again.io.v_in + (long long)b * N,
+            again.io.lam_in + (long long)b * N * c->nc, 1, &dummy, 0,
+            &dummy, &dummy, static_cast<fct::SqpSums<C>*>(nullptr));
+    });
+  }
+  cs.out();
+  return 0;
+}
+
+// The search's body on counted scalars: the outputs as fct_sqp_search_<F>
+// gives them and the operations by phase (0 the candidates' steps, 1 their
+// rollouts, 2 their residuals and costs, 3 the accept rule, the AL update
+// and the diagnostics): what the kernel runs, which is the function's (each
+// candidate on one lane).
+template <class F>
+int sqp_search_ops(const fct::PressParams* P, const fct::SqpCfg* c,
+                   void* const* p, int B, int G, int al, int row, int flags,
+                   int threads, unsigned long long* ops) {
+  typedef fct::Counted<F> C;
+  if (!sqp_takes(c, B, G, false)) return 1;
+  CountedSqp<F> cs(c, p, B);
+  counted_chunks(B, threads, ops, [&](int lo, int hi) {
+    sqp_search_scenarios<C>(P, c, cs.io, G, al, row, flags, lo, hi);
+  });
+  cs.out();
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int fct_sqp_build_f32(const fct::PressParams* P,
+                                 const fct::SqpCfg* c, void* const* ptrs,
+                                 int B, int G, int teams, int al, int row) {
+  if (!sqp_takes(c, B, G, true) || teams < 1) return 1;
+  sqp_build_scenarios<float, 1>(P, c, fct::sqp_io<float>(ptrs), G, al, row,
+                                0, B);
+  return 0;
+}
+
+extern "C" int fct_sqp_build_f64(const fct::PressParams* P,
+                                 const fct::SqpCfg* c, void* const* ptrs,
+                                 int B, int G, int teams, int al, int row) {
+  if (!sqp_takes(c, B, G, true) || teams < 1) return 1;
+  sqp_build_scenarios<double, 1>(P, c, fct::sqp_io<double>(ptrs), G, al,
+                                 row, 0, B);
+  return 0;
+}
+
+extern "C" int fct_sqp_search_f32(const fct::PressParams* P,
+                                  const fct::SqpCfg* c, void* const* ptrs,
+                                  int B, int G, int teams, int al, int row,
+                                  int flags) {
+  if (!sqp_takes(c, B, G, false) || teams < 1) return 1;
+  sqp_search_scenarios<float>(P, c, fct::sqp_io<float>(ptrs), G, al, row,
+                              flags, 0, B);
+  return 0;
+}
+
+extern "C" int fct_sqp_search_f64(const fct::PressParams* P,
+                                  const fct::SqpCfg* c, void* const* ptrs,
+                                  int B, int G, int teams, int al, int row,
+                                  int flags) {
+  if (!sqp_takes(c, B, G, false) || teams < 1) return 1;
+  sqp_search_scenarios<double>(P, c, fct::sqp_io<double>(ptrs), G, al, row,
+                               flags, 0, B);
+  return 0;
+}
+
+extern "C" int fct_sqp_build_ops_f32(const fct::PressParams* P,
+                                     const fct::SqpCfg* c, void* const* ptrs,
+                                     int B, int G, int teams, int al, int row,
+                                     int threads,
+                                     unsigned long long* ops,
+                                     unsigned long long* fn_ops,
+                                     unsigned long long* val_ops) {
+  (void)teams;
+  return sqp_build_ops<float>(P, c, ptrs, B, G, al, row, threads, ops,
+                              fn_ops, val_ops);
+}
+
+extern "C" int fct_sqp_build_ops_f64(const fct::PressParams* P,
+                                     const fct::SqpCfg* c, void* const* ptrs,
+                                     int B, int G, int teams, int al, int row,
+                                     int threads,
+                                     unsigned long long* ops,
+                                     unsigned long long* fn_ops,
+                                     unsigned long long* val_ops) {
+  (void)teams;
+  return sqp_build_ops<double>(P, c, ptrs, B, G, al, row, threads, ops,
+                               fn_ops, val_ops);
+}
+
+extern "C" int fct_sqp_search_ops_f32(const fct::PressParams* P,
+                                      const fct::SqpCfg* c,
+                                      void* const* ptrs, int B, int G,
+                                      int teams, int al, int row, int flags,
+                                      int threads, unsigned long long* ops) {
+  (void)teams;
+  return sqp_search_ops<float>(P, c, ptrs, B, G, al, row, flags, threads,
+                               ops);
+}
+
+extern "C" int fct_sqp_search_ops_f64(const fct::PressParams* P,
+                                      const fct::SqpCfg* c,
+                                      void* const* ptrs, int B, int G,
+                                      int teams, int al, int row, int flags,
+                                      int threads, unsigned long long* ops) {
+  (void)teams;
+  return sqp_search_ops<double>(P, c, ptrs, B, G, al, row, flags, threads,
+                                ops);
+}
 
 extern "C" int fct_op_phases() { return fct::kOpPhases; }
 

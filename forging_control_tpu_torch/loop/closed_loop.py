@@ -93,11 +93,12 @@ class MPCController:
     """MPC with shift warm start over the whole batch.
 
     ``backend``: "sqp" (condensed GN-SQP), "ilqr" (Riccati sweep) or
-    "auto" (:func:`resolve_backend`).  ``linsolve`` picks the kernel or
-    its plain reference on a card: for the SQP its damped normal solve
-    ("kernel": B1), for the AL-iLQR its whole solve ("kernel": K5,
-    ``riccati.solve_batch``'s ``solver``); "plain" runs the tensor code.
-    On the CPU both run the tensor code."""
+    "auto" (:func:`resolve_backend`).  ``linsolve`` picks the kernels or
+    their plain reference on a card: for the SQP its Gauss-Newton
+    iterations ("kernel": the build, B1 and the search,
+    ``sqp.solve_batch``'s ``linsolve``), for the AL-iLQR its whole solve
+    ("kernel": K5, ``riccati.solve_batch``'s ``solver``); "plain" runs the
+    tensor code.  On the CPU both run the tensor code."""
 
     cfg: sqp.MPCConfig
     backend: str = "sqp"

@@ -93,9 +93,10 @@ def copy_into(dst, src) -> None:
 
 def _counted():
     """The kernel wrappers whose ``launches`` the runs are held to."""
-    from ..ops import ilqr, lstm, plant, probe, smallchol
+    from ..ops import ilqr, lstm, plant, probe, smallchol, sqp
     return (smallchol.chol_solve_cuda, lstm.lstm_forward_cuda,
-            probe.probe_cuda, plant.plant_step_cuda, ilqr.ilqr_cuda)
+            probe.probe_cuda, plant.plant_step_cuda, ilqr.ilqr_cuda,
+            sqp.sqp_build_cuda, sqp.sqp_search_cuda)
 
 
 def _counts() -> dict:

@@ -9,9 +9,9 @@ Nothing here runs at import time, and nothing falls back: a missing ``nvcc``
 or a failed compile raises.
 
 :func:`build_host` compiles ``csrc/host_bodies.cpp`` with ``g++``: the
-per-scenario bodies of kernels K4 and K5 on the CPU, for the tests, and
-the count of the operations they need (``ops.opcount``, for the kernels'
-bounds).  No path of the port loads it.
+per-scenario bodies of kernels K4 and K5 and of the SQP's build and search
+on the CPU, for the tests, and the count of the operations they need
+(``ops.opcount``, for the kernels' bounds).  No path of the port loads it.
 """
 
 from __future__ import annotations
@@ -37,12 +37,14 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# Flags of one source beyond NVCC_FLAGS.  K4 and K5 follow their plain
-# versions operation for operation, and those round every multiply and add
-# on their own: without contraction K4 equals the plain plant bit for bit
-# on the card, and K5's physics rounds as the plain solve's does
-# (csrc/plant.cu, csrc/ilqr.cu).
-EXTRA_FLAGS = {"plant": ("--fmad=false",), "ilqr": ("--fmad=false",)}
+# Flags of one source beyond NVCC_FLAGS.  K4, K5 and the SQP's build and
+# search follow their plain versions operation for operation, and those
+# round every multiply and add on their own: without contraction K4 equals
+# the plain plant bit for bit on the card, and the solvers' physics rounds
+# as the plain solves' does (csrc/plant.cu, csrc/ilqr.cu,
+# csrc/sqp_build.cu, csrc/sqp_search.cu).
+EXTRA_FLAGS = {name: ("--fmad=false",)
+               for name in ("plant", "ilqr", "sqp_build", "sqp_search")}
 HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
               "-pthread")
 
@@ -142,7 +144,8 @@ def _build(todo) -> None:
 def build_host() -> ctypes.CDLL:
     """``csrc/host_bodies.cpp`` compiled with ``g++`` (``HOST_FLAGS``) into
     ``build/torch_kernels/host_bodies-<hash>.so`` and loaded: the bodies of
-    kernels K4 and K5 on the CPU, with their C interface less the stream.
+    kernels K4 and K5 and of the SQP's build and search on the CPU, with
+    their C interface less the stream.
     For the tests and the operation counts (``ops.opcount``); raises if
     ``g++`` is missing or the compile fails."""
     gxx = shutil.which("g++")

@@ -1,4 +1,5 @@
-"""The operations that kernels K4 and K5 need for given inputs.
+"""The operations that kernels K4 and K5 and the SQP's build and search need
+for given inputs.
 
 The kernels' per-scenario bodies (``csrc/bodies.cuh``) run on the CPU on a
 scalar that does the arithmetic and counts it (``csrc/op_count.h``, built
@@ -19,13 +20,17 @@ import os
 
 import torch
 
-from . import build, ilqr, plant
+from . import build, ilqr, plant, sqp
 
 # The bodies' phases (FCT_PHASE in csrc/bodies.cuh), by kernel.
 PLANT_PHASES = ("forging force", "RK4", "clip and measurement")
 ILQR_PHASES = ("initial rollout", "stage RK4 with tangents",
                "residuals and Gauss-Newton blocks", "backward sweep",
                "forward sweep", "accept, AL update and diagnostics")
+SQP_BUILD_PHASES = ("RK4 with a tangent", "residual rows and sums",
+                    "normal equations", "cost, gradient norm and trace")
+SQP_SEARCH_PHASES = ("candidates' steps", "RK4", "residuals and costs",
+                     "accept, AL update and diagnostics")
 
 
 @functools.cache
@@ -103,3 +108,55 @@ def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None,
     if executed:
         counts["executed"] = _by_phase(exec_ops, ILQR_PHASES)
     return out, counts
+
+
+def _dtype(v):
+    return "f32" if v.dtype == torch.float32 else "f64"
+
+
+def sqp_build_ops(kcfg, params, x0, ref, u_prev, v, lam, bufs, step,
+                  threads=None, team=None):
+    """The counts of the SQP build's body on these CPU tensors
+    (``ops.sqp.sqp_build_cuda``'s arguments; its outputs land in ``bufs``
+    as the host build writes them): ``{"total", "by_phase"}`` over
+    :data:`SQP_BUILD_PHASES`, what the kernel runs with ``team`` lanes (each
+    of its N working lanes its own values); ``"function"``, the same for one
+    lane with every input
+    direction (the values and what the tangent rules derive from them
+    counted once, as ``dual.linearize`` computes them); and ``"values"``,
+    one lane's values alone, which each further lane of the kernel
+    computes again (``csrc/host_bodies.cpp`` ``sqp_build_ops``)."""
+    sqp.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu")
+    team = sqp.build_team(kcfg.N) if team is None else team
+    ptrs = sqp.pointers(bufs, x0, ref, u_prev, v, lam)
+    ops, fn_ops, val_ops = ((ctypes.c_ulonglong * 8)() for _ in range(3))
+    fn = _fn(f"fct_sqp_build_ops_{_dtype(v)}",
+             sqp._BUILD_ARGS[:-1]
+             + (ctypes.c_int,) + (ctypes.POINTER(ctypes.c_ulonglong),) * 3)
+    if fn(*sqp.build_args(kcfg, params, ptrs, v.shape[0], step, team),
+          _threads(threads), ops, fn_ops, val_ops) != 0:
+        raise ValueError("fct_sqp_build_ops refused its arguments")
+    counts = _by_phase(ops, SQP_BUILD_PHASES)
+    counts["function"] = _by_phase(fn_ops, SQP_BUILD_PHASES)
+    counts["values"] = _by_phase(val_ops, SQP_BUILD_PHASES)
+    return counts
+
+
+def sqp_search_ops(kcfg, params, x0, ref, u_prev, v, lam, x, bufs, step,
+                   threads=None, team=None):
+    """The counts of the SQP search's body on these CPU tensors
+    (``ops.sqp.sqp_search_cuda``'s arguments; its outputs land in
+    ``bufs``): ``{"total", "by_phase"}`` over :data:`SQP_SEARCH_PHASES`,
+    which is the function's (each candidate on one lane)."""
+    sqp.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu")
+    team = sqp.search_team(kcfg.n_lad + 2) if team is None else team
+    ptrs = sqp.pointers(bufs, x0, ref, u_prev, v, lam, x.contiguous())
+    ops = (ctypes.c_ulonglong * 8)()
+    fn = _fn(f"fct_sqp_search_ops_{_dtype(v)}",
+             sqp._SEARCH_ARGS[:-1]
+             + (ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong)))
+    if fn(*sqp.search_args(kcfg, params, ptrs, v.shape[0], step, team),
+          _threads(threads), ops) != 0:
+        raise ValueError("fct_sqp_search_ops refused its arguments")
+    return _by_phase(ops, SQP_SEARCH_PHASES)
+

@@ -9,17 +9,25 @@ step ladder, and shift warm starting.
 
 The explicit batch is the primary form here: :func:`solve_batch` carries B
 scenarios through every operation, and :func:`solve` is its B = 1 wrapper.
-Each Gauss-Newton iteration takes the residual Jacobian by forward mode over
-the N input directions (:func:`~forging_control_tpu_torch.dual.linearize`,
-the counterpart of ``jax.linearize`` + ``vmap(jvp)``), forms ``g = J^T r``
-and ``H = J^T J`` with ``torch.einsum``, and solves the (B, 3, N, N) damped
-normal systems in one call of the linear solver that ``linsolve`` names:
+Two implementations, chosen by :func:`solve_batch`'s ``linsolve``:
 
-* ``"kernel"`` — :func:`~forging_control_tpu_torch.ops.smallchol.chol_solve`,
-  the hand-written CUDA kernel on a card (the plain version on the CPU); the
-  counterpart of the JAX package's ``linsolve="pallas"``;
-* ``"plain"`` — the plain PyTorch solve on any device (JAX's
-  ``"unrolled"``), for comparisons.
+* ``"kernel"`` — on a card, every Gauss-Newton iteration is three
+  hand-written kernels: the build (:func:`~forging_control_tpu_torch.ops.
+  sqp.sqp_build_cuda`: the residuals' Jacobian, ``g = J^T r``, ``H = J^T J``
+  and the three damped systems), B1 on those systems
+  (:func:`~forging_control_tpu_torch.ops.smallchol.chol_solve_cuda`, the
+  counterpart of the JAX package's ``linsolve="pallas"``) and the line
+  search (:func:`~forging_control_tpu_torch.ops.sqp.sqp_search_cuda`, which
+  also updates the multipliers and writes the diagnostics), so no rollout
+  is dispatched as tensor code; on the CPU the tensor code below, with
+  :func:`~forging_control_tpu_torch.ops.smallchol.chol_solve` taking its
+  plain version;
+* ``"plain"`` — the tensor code on any device, the kernels' reference: each
+  Gauss-Newton iteration takes the residual Jacobian by forward mode over
+  the N input directions (:func:`~forging_control_tpu_torch.dual.linearize`,
+  the counterpart of ``jax.linearize`` + ``vmap(jvp)``), forms ``g = J^T r``
+  and ``H = J^T J`` with ``torch.einsum``, and solves the (B, 3, N, N) damped
+  normal systems with the plain PyTorch solve (JAX's ``"unrolled"``).
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ import torch
 from .. import dual as ad
 from ..device import resolve_device
 from ..integrate.rk4 import rk4_step
-from ..ops.smallchol import chol_solve, chol_solve_torch
+from ..ops import build
+from ..ops import sqp as sqp_ops
+from ..ops.smallchol import chol_solve, chol_solve_cuda, chol_solve_torch
 from ..physics import press
 from ..physics.scaling import U_SCALE
 
@@ -212,6 +222,17 @@ def _infeasibility(c):
     return torch.clamp_min(torch.amax(-c, dim=-1), 0.0)
 
 
+def _objective(cfg: MPCConfig, x0, ref, u_prev_s, v):
+    """The true (non-AL) objective and the primal infeasibility at v, from
+    a rollout: solve_batch's final diagnostics."""
+    xs = _rollout(cfg, x0, v)
+    r_track = xs[..., 1] - ref[:, None]
+    dv = _du(u_prev_s, v)
+    obj = torch.sum(r_track ** 2, dim=-1) + cfg.rterm * torch.sum(dv ** 2,
+                                                                  dim=-1)
+    return obj, _infeasibility(_constraints(cfg, xs))
+
+
 def polish(cfg: MPCConfig, x0, ref, u_prev_s, v, lam):
     """Active-set Newton polish of an AL-converged iterate, batched over the
     leading axis (see the JAX package's ``sqp.polish``).
@@ -332,6 +353,13 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
         shifted.  Its dtype and device set those of the solve.
       linsolve: ``"kernel"`` or ``"plain"`` (see the module docstring).
 
+    Dispatch: a state on a card with ``linsolve="kernel"`` runs the
+    kernels (build, B1 and search a Gauss-Newton iteration; the polish, if
+    the configuration asks for it, after them in tensor code), and raises
+    where they cannot run (N above B1's 25): there is no fallback.
+    ``"plain"`` on any device, and every solve on the CPU, runs the tensor
+    code.  Any other device or ``linsolve`` raises.
+
     Returns (u0 (B,), SolverState, Diagnostics with (B,) leaves).
     """
     if linsolve == "kernel":
@@ -340,6 +368,8 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
         lin = chol_solve_torch
     else:
         raise ValueError(f"unknown linsolve {linsolve!r}; one of {LINSOLVES}")
+    if build.on_card(state.v.device) and linsolve == "kernel":
+        return _solve_batch_kernel(cfg, x0, ref, u_prev, state)
     dtype, device = state.v.dtype, state.v.device
     B, N = state.v.shape
     x0, ref, u_prev_s = _prepare(x0, ref, u_prev, state)
@@ -404,16 +434,11 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
     if cfg.polish_iters > 0:
         v = polish(cfg, x0, ref, u_prev_s, v, lam)
 
-    xs = _rollout(cfg, x0, v)
-    c = _constraints(cfg, xs)
-    r_track = xs[..., 1] - ref[:, None]
-    dv = _du(u_prev_s, v)
-    obj = torch.sum(r_track ** 2, dim=-1) + cfg.rterm * torch.sum(dv ** 2,
-                                                                  dim=-1)
+    obj, inf_pr = _objective(cfg, x0, ref, u_prev_s, v)
     diag = Diagnostics(
         iters=iters,
         obj=obj,
-        inf_pr=_infeasibility(c),
+        inf_pr=inf_pr,
         inf_du=inf_du,
         reg=torch.full((B,), cfg.lm_reg, dtype=dtype, device=device),
         d_norm=d_norm,
@@ -422,6 +447,53 @@ def solve_batch(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,
         trace=torch.stack(traces, dim=1) if cfg.record_trace else None,
     )
     return v[:, 0] * U_SCALE, SolverState(v=v, lam=lam), diag
+
+
+def kernel_cfg(cfg: MPCConfig, N: int):
+    """The kernels' configuration (``ops.sqp.SqpCfgC``) for ``cfg`` at
+    horizon N, with this solver's pressure scale."""
+    return sqp_ops.sqp_cfg_c(cfg, N, _P_SCALE)
+
+
+def _solve_batch_kernel(cfg: MPCConfig, x0, ref, u_prev,
+                        state: SolverState):
+    """:func:`solve_batch` through the kernels: per Gauss-Newton iteration
+    the build, B1 on the (B, 3, N, N) damped systems and the search
+    (``ops.sqp.schedule``); with ``polish_iters`` the polish, the rollout
+    and the final diagnostics follow in tensor code."""
+    v, lam = state.v.contiguous(), state.lam.contiguous()
+    B, N = v.shape
+    dtype, device = v.dtype, v.device
+    x0 = torch.as_tensor(x0, device=device).to(dtype).contiguous()
+    ref = torch.as_tensor(ref, device=device).to(dtype).expand(B).contiguous()
+    u_prev = torch.as_tensor(u_prev, device=device).to(dtype).expand(B) \
+        .contiguous()
+    kcfg = kernel_cfg(cfg, N)
+    bufs = sqp_ops.allocate(kcfg, v)
+    out = bufs.out
+    for step in sqp_ops.schedule(cfg.al_iters, cfg.gn_iters,
+                                 cfg.record_trace):
+        sqp_ops.sqp_build_cuda(kcfg, cfg.params, x0, ref, u_prev, v, lam,
+                               bufs, step)
+        x = bufs.g
+        if step.flags & sqp_ops.STEP:
+            x = chol_solve_cuda(bufs.H.view(3 * B, N, N),
+                                bufs.g.view(3 * B, N)).view(B, 3, N)
+        sqp_ops.sqp_search_cuda(kcfg, cfg.params, x0, ref, u_prev, v, lam, x,
+                                bufs, step)
+        v = out.v
+        if step.flags & sqp_ops.ROUND_END:
+            lam = out.lam
+    diag = Diagnostics(iters=out.iters, obj=out.obj, inf_pr=out.inf_pr,
+                       inf_du=out.inf_du, reg=out.reg, d_norm=out.d_norm,
+                       mu=out.mu, alpha=out.alpha, trace=out.trace)
+    if cfg.polish_iters <= 0:
+        return out.u0, SolverState(v=v, lam=lam), diag
+    u_prev_s = u_prev / U_SCALE
+    v = polish(cfg, x0, ref, u_prev_s, v, lam)
+    obj, inf_pr = _objective(cfg, x0, ref, u_prev_s, v)
+    return v[:, 0] * U_SCALE, SolverState(v=v, lam=lam), \
+        diag._replace(obj=obj, inf_pr=inf_pr)
 
 
 def solve(cfg: MPCConfig, x0, ref, u_prev, state: SolverState, *,

@@ -27,8 +27,10 @@ def test_torch_run_bench_record_on_cpu():
     assert rec["value"] > 0 and rec["steps"] == 1
     assert rec["device"] == {"name": "cpu", "power_limit": None}
     # On the CPU every dispatcher takes the plain version: no launch.
-    none = {"chol_solve": 0, "ilqr": 0, "plant": 0}
-    assert rec["kernels"] == ["chol_solve", "plant"]
+    none = {"chol_solve": 0, "ilqr": 0, "plant": 0, "sqp_build": 0,
+            "sqp_search": 0}
+    assert rec["kernels"] == ["sqp_build", "chol_solve", "sqp_search",
+                              "plant"]
     assert rec["kernel_launches"] == none
     assert rec["backend"] == "sqp" and rec["linsolve"] == "kernel"
     # The check ran first: on the CPU both paths take the plain versions.

@@ -1,7 +1,7 @@
 """Kernels B1 (small Cholesky solve), B2 (LSTM forward), B3 (toolchain
-probe), K4 (the closed loop's plant step) and K5 (the whole AL-iLQR solve)
-against their plain PyTorch versions on a card (``gpu`` marker; skips
-without one).
+probe), K4 (the closed loop's plant step), K5 (the whole AL-iLQR solve) and
+the SQP's Gauss-Newton build and line search against their plain PyTorch
+versions on a card (``gpu`` marker; skips without one).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only PyTorch; ``tests/conftest.py`` imports jax, so run it
@@ -16,10 +16,11 @@ import torch
 
 from forging_control_tpu_torch.loop import closed_loop as cl
 from forging_control_tpu_torch.nn import lstm
-from forging_control_tpu_torch.ops import ilqr, plant, probe, smallchol
+from forging_control_tpu_torch.ops import build, ilqr, plant, probe, smallchol
 from forging_control_tpu_torch.ops import lstm as lstm_ops
+from forging_control_tpu_torch.ops import sqp as sqp_ops
 from forging_control_tpu_torch.physics import press
-from forging_control_tpu_torch.solver import riccati
+from forging_control_tpu_torch.solver import riccati, sqp
 
 
 def _need_card():
@@ -410,3 +411,77 @@ def test_torch_ilqr_kernel_matches_plain_on_gpu():
     with pytest.raises(RuntimeError, match="backward"):
         ilqr.ilqr_cuda(kcfg5, cfg.params, x0.requires_grad_(), ref, ref,
                        v[:, :5].contiguous(), lam[:, :5].contiguous())
+
+
+@pytest.mark.gpu
+def test_torch_sqp_kernels_match_plain_on_gpu():
+    """solve_batch through the SQP's build, B1 and search against the plain
+    solve on the card from the closed loop's cold start: N = 2, 10 and 12,
+    p_max None and 32e6, one and two AL rounds, the trace.  Float64 u0, v
+    and lam within 1e-9; float32 commands within 1e-4."""
+    _need_card()
+    rng = np.random.RandomState(9)
+    for cfg, B in ((sqp.MPCConfig.fast(horizon=10, gn_iters=5,
+                                       variant="smooth"), 300),
+                   (sqp.MPCConfig(horizon=10, gn_iters=3, al_iters=2,
+                                  p_max=32e6, variant="smooth",
+                                  record_trace=True), 37),
+                   (sqp.MPCConfig(horizon=2, step_ladder=(1.0, 0.5, 0.25)),
+                    37),
+                   (sqp.MPCConfig.fast(horizon=12, variant="clamp"), 37)):
+        for dtype in (torch.float64, torch.float32):
+            x0 = torch.tensor(press.X0_REFERENCE, dtype=dtype,
+                              device="cuda").repeat(B, 1)
+            ref = torch.from_numpy(rng.uniform(0.1, 0.9, B)).to("cuda", dtype)
+            up = torch.zeros(B, dtype=dtype, device="cuda")
+            st = sqp.init_state(cfg, dtype, "cuda")
+            st = sqp.SolverState(st.v.expand(B, -1).contiguous(),
+                                 st.lam.expand(B, -1).contiguous())
+            uk, sk, dk = sqp.solve_batch(cfg, x0, ref, up, st)
+            up_, sp, dp = sqp.solve_batch(cfg, x0, ref, up, st,
+                                          linsolve="plain")
+            torch.cuda.synchronize()
+            assert torch.isfinite(uk).all()
+            if dtype == torch.float64:
+                for a, b in ((uk, up_), (sk.v, sp.v), (sk.lam, sp.lam)):
+                    assert (a - b).abs().max() <= 1e-9
+                assert torch.equal(dk.iters, dp.iters)
+                if cfg.record_trace:
+                    torch.testing.assert_close(dk.trace, dp.trace, rtol=1e-7,
+                                               atol=1e-9)
+            else:
+                assert (uk - up_).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_torch_sqp_captured_period_launches_on_gpu():
+    """One captured closed-loop period of the SQP (fast_5x1, N = 10,
+    float32, B = 256) holds a build, B1 and a search a Gauss-Newton
+    iteration and K4 once, by the wrappers' counts and by the kernels' own
+    runs on the card; a traced replay runs some tens of device kernels, no
+    dispatched rollout (the tensor code's period is some 527,000)."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    cfg = sqp.MPCConfig.fast(horizon=10, gn_iters=5, variant="smooth")
+    ctrl = cl.MPCController(cfg)
+    loop = cl.LoopConfig(t_steps=2, variant="smooth")
+    B = 256
+    x0 = torch.tensor(press.X0_REFERENCE, device="cuda").float().repeat(B, 1)
+    refs = torch.full((B, 2), 0.4, device="cuda")
+    cl.run_batch(loop, ctrl, x0, refs, device="cuda")   # captures
+    period = cl.cached_period(loop, ctrl, B, torch.float32, "cuda")
+    assert period.stats["launches"] == {
+        "chol_solve_cuda": 5, "plant_step_cuda": 1, "sqp_build_cuda": 5,
+        "sqp_search_cuda": 5}
+    for name in sqp_ops.SOURCES:
+        build.kernel_runs(name, reset=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cl.run_batch(loop, ctrl, x0, refs, device="cuda")
+        torch.cuda.synchronize()
+    assert {n: build.kernel_runs(n) for n in sqp_ops.SOURCES} == {
+        "sqp_build": 10, "sqp_search": 10}
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("sqp_build_kernel" in n for n in names) == 10
+    assert sum("sqp_search_kernel" in n for n in names) == 10
+    assert len(names) <= 2 * 60

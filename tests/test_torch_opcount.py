@@ -1,6 +1,6 @@
-"""The operation counts of kernels K4 and K5 (``ops.opcount``): their
-bodies on the CPU on the counting scalar of ``csrc/op_count.h``, and K4's
-longest dependent chain.
+"""The operation counts of kernels K4 and K5 and of the SQP's build and
+search (``ops.opcount``): their bodies on the CPU on the counting scalar of
+``csrc/op_count.h``, and K4's longest dependent chain.
 
 The counted run computes what the host build computes, bit for bit, and
 its count does not depend on how the scenarios are split over threads.
@@ -16,9 +16,11 @@ import torch
 import torch_host_kernels as hk
 from forging_control_tpu_torch import bench
 from forging_control_tpu_torch.loop import closed_loop as cl
-from forging_control_tpu_torch.ops import opcount, plant
+from forging_control_tpu_torch.ops import opcount, plant, smallchol
+from forging_control_tpu_torch.ops import sqp as sqp_ops
 from forging_control_tpu_torch.physics import press
-from forging_control_tpu_torch.solver import riccati
+from forging_control_tpu_torch.physics.scaling import U_SCALE
+from forging_control_tpu_torch.solver import riccati, sqp
 
 
 def _plant_inputs(B, seed):
@@ -196,3 +198,136 @@ def test_torch_opcount_ilqr_pinned_to_the_one_thread_body(stroke):
     assert executed["by_phase"][rk4] > counts["by_phase"][rk4]
     assert all(executed["by_phase"][k] <= n
                for k, n in counts["by_phase"].items() if k != rk4)
+
+
+def _sqp_launch(cfg, B, ref):
+    """The first Gauss-Newton iteration of a cold SQP solve from the
+    reference state, float64: (kernel configuration, inputs, buffers,
+    step)."""
+    N = cfg.horizon
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float64).repeat(B, 1)
+    ref = torch.as_tensor(ref, dtype=torch.float64).expand(B).contiguous()
+    up = torch.zeros(B, dtype=torch.float64)
+    v = torch.zeros(B, N, dtype=torch.float64)
+    lam = torch.zeros(B, cfg.n_con, dtype=torch.float64)
+    kcfg = sqp.kernel_cfg(cfg, N)
+    step = sqp_ops.schedule(cfg.al_iters, cfg.gn_iters, cfg.record_trace)[0]
+    return kcfg, (x0, ref, up, v, lam), sqp_ops.allocate(kcfg, v), step
+
+
+@pytest.mark.parametrize("p_max", [None, 32e6], ids=["nc2_trace", "nc4"])
+def test_torch_opcount_sqp_outputs_equal_host_build(p_max):
+    """The counted build and search write what the host build writes,
+    bit for bit, and count the same on one thread as on three."""
+    hk.lib()
+    cfg = sqp.MPCConfig(horizon=5, variant="smooth", gn_iters=2,
+                        al_iters=1, p_max=p_max, record_trace=p_max is None)
+    kcfg, t, bufs, step = _sqp_launch(cfg, 6, np.linspace(-0.8, 0.6, 6))
+    step = step._replace(flags=step.flags | sqp_ops.ROUND_END
+                         | sqp_ops.LAST)
+    def zeroed(b):      # one launch writes one trace row of two
+        if b.out.trace is not None:
+            b.out.trace.zero_()
+        return b
+
+    bufs = zeroed(bufs)
+    counted = {}
+    for threads in (1, 3):
+        b = zeroed(sqp_ops.allocate(kcfg, t[3]))
+        cb = opcount.sqp_build_ops(kcfg, cfg.params, *t, b, step, threads)
+        x = smallchol.chol_solve_torch(b.H, b.g)
+        cs = opcount.sqp_search_ops(kcfg, cfg.params, *t, x, b, step,
+                                    threads)
+        counted[threads] = (cb, cs, b)
+    hk.sqp_build_host(kcfg, cfg.params, *t, bufs, step)
+    x = smallchol.chol_solve_torch(bufs.H, bufs.g)
+    hk.sqp_search_host(kcfg, cfg.params, *t, x, bufs, step)
+    got = counted[1][2]
+    for a, w in zip((got.H, got.g, got.work, got.cs, *got.out),
+                    (bufs.H, bufs.g, bufs.work, bufs.cs, *bufs.out)):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert torch.equal(a, w)
+    assert counted[1][:2] == counted[3][:2]
+    assert all(n > 0 for n in counted[1][0]["by_phase"].values())
+
+
+def _rk4_ops(xs, us):
+    """K4's count of its RK4 phase (plant_body, the function's count) for
+    one period from each state of xs (R, 5) at the commands us (R,)."""
+    loop = cl.LoopConfig(variant="smooth")
+    _, counts = opcount.plant_ops(loop, xs, xs, us, None, None, threads=1)
+    return counts["by_phase"]["RK4"]
+
+
+def test_torch_opcount_sqp_hand_count_at_n2():
+    """The build's and the search's counts at N = 2 (fast_5x1, nc = 2,
+    one scenario from the reference state, a cold start, the first
+    Gauss-Newton iteration), counted by hand where they are not physics;
+    their rollouts' physics is K4's count of the same periods.
+
+    Build, a lane per direction i (lane 0 also sums).  Residual rows a
+    lane: u_prev's scaling (1); a stage: y_dot - ref, du, sqrt(rterm) du
+    (3), each pressure over its scale (1; minus p_lo = 0 is free) and its
+    tangent where direction i has reached stage k (1), each AL row
+    (lam / mu, minus c, max, times sqrt(mu / 2): 4; the constraints are
+    inactive, so their tangents are structural zeros): 13 + 2 [k >= i];
+    lane 0's sums: 3 + 6 over the stages' squares (track, du, raw du),
+    3 + 6 over the AL rows' squares and the largest -c; so
+    (1 + 15 + 15) + 18 + (1 + 13 + 15) = 78, and with the values once
+    (less lane 1's 1 + 13 + 13) 51.  Normal equations: g_0 over the rows
+    (track0, track1, du0, du1: 4 products, 3 adds; the AL rows' tangents
+    are zero) 7, g_1 (track1, du1) 3, H_00 5 + 3 dampings, H_01 2, H_11
+    2 + 3: 25.  Cost (3 adds, a half), objective (2), infeasibility (1)
+    and the largest |g| (2 abs, 1 max): 10.  A lane's values (what lane 1
+    computes again): the RK4 is K4's count of the two periods along v and
+    the input's scaling (v U_SCALE, 1 a stage), the residual rows 1 + 13
+    + 13.  The function's count (one lane, every direction) does not
+    depend on the kernel's team.
+
+    Search, a candidate a lane: steps (v + alpha d, its square into the
+    norm: 2 at stage 0 and 3 after, one more a stage where alpha is not
+    1): 5 + 7 + 5 + 5 = 22; residuals and costs a candidate: u_prev's
+    scaling 1, stage 0 19 (3 rows, 3 squares, 2 pressures, 8 AL, 3 AL
+    squares and max), stage 1 25, then the cost (4), the norm's root (1),
+    the objective (2) and the infeasibility (1): 53, 212 for four; the new
+    iterate N (1 + [alpha != 1]); the RK4 K4's count of the candidates'
+    periods and their inputs' scaling (1 a stage)."""
+    hk.lib()
+    cfg = sqp.MPCConfig.fast(horizon=2, gn_iters=5, variant="smooth")
+    kcfg, t, bufs, step = _sqp_launch(cfg, 1, 0.3)
+    x0, ref, up, v, lam = t
+    cb = opcount.sqp_build_ops(kcfg, cfg.params, *t, bufs, step, threads=1)
+    fn, vals = cb["function"]["by_phase"], cb["values"]["by_phase"]
+    assert [cb["by_phase"][p] for p in opcount.SQP_BUILD_PHASES[1:]] == [
+        78, 25, 10]
+    assert [fn[p] for p in opcount.SQP_BUILD_PHASES[1:]] == [51, 25, 10]
+    xs = sqp._rollout(cfg, x0, v)[0]                       # (N, 5)
+    rk4 = opcount.SQP_BUILD_PHASES[0]
+    assert vals[rk4] == _rk4_ops(torch.cat([x0, xs[:-1]]),
+                                 v[0] * U_SCALE) + 2
+    assert vals[opcount.SQP_BUILD_PHASES[1]] == 1 + 13 + 13
+    # The function's count does not depend on the kernel's team.
+    other = opcount.sqp_build_ops(kcfg, cfg.params, *t,
+                                  sqp_ops.allocate(kcfg, v), step,
+                                  threads=1, team=16)
+    assert other["function"] == cb["function"]
+    assert other["total"] == cb["total"]
+
+
+    x = smallchol.chol_solve_torch(bufs.H, bufs.g)
+    cs = opcount.sqp_search_ops(kcfg, cfg.params, *t, x, bufs, step,
+                                threads=1)
+    alphas = torch.tensor([1.0, 0.25, 1.0, 1.0], dtype=torch.float64)
+    dirs = -x[0][[0, 0, 1, 2]]
+    vs = v + alphas[:, None] * dirs                         # (4, N)
+    states = sqp._rollout(cfg, x0.expand(4, 5), vs)
+    starts = torch.cat([x0.expand(4, 1, 5), states[:, :-1]], 1)
+    taken = float(bufs.out.d_norm[0]) > 0
+    best_alpha = float(bufs.out.alpha[0])
+    assert cs["by_phase"] == {
+        "candidates' steps": 22, "RK4": _rk4_ops(
+            starts.reshape(-1, 5), (vs * U_SCALE).reshape(-1)) + 4 * 2,
+        "residuals and costs": 212,
+        "accept, AL update and diagnostics":
+            2 * (1 + (best_alpha != 1.0)) if taken else 0}

@@ -1,4 +1,5 @@
-"""Kernels K4 (plant step) and K5 (AL-iLQR solve) on the CPU, for the tests.
+"""Kernels K4 (plant step), K5 (AL-iLQR solve) and the SQP's build and search
+on the CPU, for the tests.
 
 ``csrc/host_bodies.cpp`` runs the kernels' per-scenario bodies
 (``csrc/bodies.cuh`` on ``csrc/press_dual.cuh``, the same source that nvcc
@@ -18,8 +19,9 @@ import shutil
 import pytest
 import torch
 
-from forging_control_tpu_torch.ops import build, ilqr, plant
+from forging_control_tpu_torch.ops import build, ilqr, plant, smallchol, sqp
 from forging_control_tpu_torch.solver import riccati
+from forging_control_tpu_torch.solver import sqp as sqp_solver
 
 
 @functools.cache
@@ -69,13 +71,45 @@ def solve_host(cfg, x0, ref, u_prev, v, lam, team=ilqr.TEAM) -> ilqr.Solved:
                      ref, u_prev, v, lam, team)
 
 
-def route_kernels_to_host(monkeypatch) -> dict:
+def _dtype(v):
+    return "f32" if v.dtype == torch.float32 else "f64"
+
+
+def sqp_build_host(kcfg, params, x0, ref, u_prev, v_in, lam_in, bufs, step,
+                   team=None):
+    """The SQP build's body on the CPU (``ops.sqp.sqp_build_cuda``'s
+    arguments), ``team`` lanes a scenario (default ``sqp.build_team``)."""
+    sqp.check(kcfg, x0, ref, u_prev, v_in, lam_in, device_type="cpu")
+    team = sqp.build_team(kcfg.N) if team is None else team
+    ptrs = sqp.pointers(bufs, x0, ref, u_prev, v_in, lam_in)
+    rc = _fn(f"fct_sqp_build_{_dtype(v_in)}", sqp._BUILD_ARGS[:-1])(
+        *sqp.build_args(kcfg, params, ptrs, v_in.shape[0], step, team))
+    assert rc == 0
+
+
+def sqp_search_host(kcfg, params, x0, ref, u_prev, v_in, lam_in, x, bufs,
+                    step, team=None):
+    """The SQP search's body on the CPU (``ops.sqp.sqp_search_cuda``'s
+    arguments), ``team`` lanes a scenario (default ``sqp.search_team``)."""
+    sqp.check(kcfg, x0, ref, u_prev, v_in, lam_in, device_type="cpu")
+    team = sqp.search_team(kcfg.n_lad + 2) if team is None else team
+    ptrs = sqp.pointers(bufs, x0, ref, u_prev, v_in, lam_in, x.contiguous())
+    rc = _fn(f"fct_sqp_search_{_dtype(v_in)}", sqp._SEARCH_ARGS[:-1])(
+        *sqp.search_args(kcfg, params, ptrs, v_in.shape[0], step, team))
+    assert rc == 0
+
+
+def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
     """Make the dispatch take the kernels for CPU tensors and run their
     bodies on the CPU: ``build.on_card`` says yes for the CPU, and the CUDA
-    wrappers' launches go to the host library.  Returns the launch counts
-    of the two kernels, which the patched wrappers keep."""
+    wrappers' launches go to the host library (B1's to its plain version).
+    Returns the launch counts of K4 and K5, which the patched wrappers keep,
+    and with ``sqp_counts`` those of the SQP's build, B1 and the search."""
     lib()
     counts = {"plant": 0, "ilqr": 0}
+    every = dict(counts, sqp_build=0, chol_solve=0, sqp_search=0)
+    if sqp_counts:
+        counts = every
     on_card = build.on_card
 
     def cpu_is_card(device):
@@ -89,9 +123,21 @@ def route_kernels_to_host(monkeypatch) -> dict:
         counts["ilqr"] += 1
         return ilqr_host(*a)
 
+    def counted(name, fn):
+        def run(*a, **kw):
+            every[name] += 1
+            return fn(*a, **kw)
+        return run
+
     monkeypatch.setattr(build, "on_card", cpu_is_card)
     monkeypatch.setattr(plant, "plant_step_cuda", plant_cuda)
     monkeypatch.setattr(ilqr, "ilqr_cuda", ilqr_cuda)
+    monkeypatch.setattr(sqp, "sqp_build_cuda",
+                        counted("sqp_build", sqp_build_host))
+    monkeypatch.setattr(sqp, "sqp_search_cuda",
+                        counted("sqp_search", sqp_search_host))
+    monkeypatch.setattr(sqp_solver, "chol_solve_cuda",
+                        counted("chol_solve", smallchol.chol_solve_torch))
     return counts
 
 
