@@ -104,43 +104,54 @@ struct TeamSerial {
 template <class T>
 bool ilqr_takes(const fct::IlqrCfg* c, int B, int G) {
   return B >= 0 && c->N >= 1
-         && (long long)fct::ilqr_team_fields(c->N) * sizeof(T) <= 227 * 1024
+         && (long long)fct::ilqr_team_fields(c->N) * sizeof(T)
+                <= fct::kIlqrSharedBytes
          && (c->nc == 2 || c->nc == 4) && c->substeps >= 1
          && (G == 4 || G == 8 || G == 16 || G == 32);
 }
 
-// Scenarios lo..hi-1 by the team of G lanes, K tangents a unit; skip:
-// ilqr_team's skip_repeats.
+// Scenarios lo..hi-1 by the team of G lanes, K tangents a unit; skip and
+// sweeps: ilqr_team's skip_repeats and sweeps.
 template <class T, int K>
 void ilqr_scenarios(const fct::PressParams* P, const fct::IlqrCfg* c,
                     const fct::IlqrIO<T>& io, int G, int lo, int hi,
-                    bool skip) {
+                    bool skip, unsigned* sweeps = nullptr) {
   std::vector<T> sm(fct::ilqr_team_fields(c->N));
   for (int b = lo; b < hi; ++b) {
     std::fill(sm.begin(), sm.end(), T());
     T* s = sm.data();
     switch (G) {
       case 4:
-        fct::ilqr_team<T, 4, K>(*P, *c, io, b, s, TeamSerial<4>(), skip);
+        fct::ilqr_team<T, 4, K>(*P, *c, io, b, s, TeamSerial<4>(), skip,
+                                sweeps);
         break;
       case 8:
-        fct::ilqr_team<T, 8, K>(*P, *c, io, b, s, TeamSerial<8>(), skip);
+        fct::ilqr_team<T, 8, K>(*P, *c, io, b, s, TeamSerial<8>(), skip,
+                                sweeps);
         break;
       case 16:
-        fct::ilqr_team<T, 16, K>(*P, *c, io, b, s, TeamSerial<16>(), skip);
+        fct::ilqr_team<T, 16, K>(*P, *c, io, b, s, TeamSerial<16>(), skip,
+                                 sweeps);
         break;
       default:
-        fct::ilqr_team<T, 32, K>(*P, *c, io, b, s, TeamSerial<32>(), skip);
+        fct::ilqr_team<T, 32, K>(*P, *c, io, b, s, TeamSerial<32>(), skip,
+                                 sweeps);
     }
   }
 }
+
+// K5's sweeps per AL round on the CPU, as csrc/ilqr.cu g_sweeps counts
+// them on the card: a launch's sums added once at its end.
+unsigned long long g_sweeps[fct::kSweepRounds] = {};
 
 template <class T>
 int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
          int B, int G, int teams) {
   if (!ilqr_takes<T>(c, B, G) || teams < 1) return 1;
+  unsigned sweeps[fct::kSweepRounds] = {};
   ilqr_scenarios<T, fct::kIlqrTangents>(P, c, fct::ilqr_io<T>(p), G, 0, B,
-                                        true);
+                                        true, sweeps);
+  for (int r = 0; r < fct::kSweepRounds; ++r) g_sweeps[r] += sweeps[r];
   return 0;
 }
 
@@ -612,4 +623,11 @@ extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
 extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
                             void* const* ptrs, int B, int G, int teams) {
   return ilqr<double>(P, c, ptrs, B, G, teams);
+}
+
+// csrc/ilqr.cu's fct_ilqr_sweeps for the host build's launches.
+extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
+  std::copy(g_sweeps, g_sweeps + fct::kSweepRounds, out);
+  if (reset) std::fill(g_sweeps, g_sweeps + fct::kSweepRounds, 0ULL);
+  return 0;
 }

@@ -68,7 +68,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kSharedBytes = 227 * 1024;   // a block's opt-in maximum
+constexpr int kSharedBytes = fct::kIlqrSharedBytes;
 // The default team size (ops/ilqr.py TEAM); float64 is built for it alone,
 // float32 for every size (the others are there to be timed), which keeps
 // this source's build near the other sources'.
@@ -78,6 +78,11 @@ constexpr int kTeam = 8;
 // first block adds one at every launch, so that a replayed CUDA graph shows
 // whether the kernel's node ran (fct_ilqr_runs reads and resets it).
 __device__ unsigned long long g_runs = 0;
+// The Gauss-Newton iterations the kernel computed, summed over scenarios,
+// per AL round (bodies.cuh ilqr_team's sweeps; fct_ilqr_sweeps reads and
+// resets them).  A block sums its teams' counts in shared memory, and its
+// first thread adds the sums here once, at the block's end.
+__device__ unsigned long long g_sweeps[fct::kSweepRounds] = {};
 
 // Blocks of at most one warp, each holding `teams` teams of G lanes.
 template <class T, int G>
@@ -86,18 +91,27 @@ ilqr_kernel(const __grid_constant__ fct::PressParams P,
             const __grid_constant__ fct::IlqrCfg c,
             const __grid_constant__ fct::IlqrIO<T> io, int B, int teams) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned sweeps[fct::kSweepRounds];
   if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs, 1ULL);
+  for (int r = threadIdx.x; r < fct::kSweepRounds; r += blockDim.x)
+    sweeps[r] = 0;
+  __syncthreads();
   const int team = threadIdx.x / G;
   const int b = blockIdx.x * teams + team;
-  if (b >= B) return;   // the whole team
-  T* sm = reinterpret_cast<T*>(smem)
-          + (long long)team * fct::ilqr_team_fields(c.N);
-  const int lane = threadIdx.x % G;
-  const unsigned mask =
-      G == kWarp ? 0xffffffffu
-                 : ((1u << G) - 1u) << ((threadIdx.x % kWarp) / G * G);
-  fct::ilqr_team<T, G, fct::kIlqrTangents>(P, c, io, b, sm,
-                                           fct::TeamLanes{lane, mask}, true);
+  if (b < B) {   // the whole team
+    T* sm = reinterpret_cast<T*>(smem)
+            + (long long)team * fct::ilqr_team_fields(c.N);
+    const int lane = threadIdx.x % G;
+    const unsigned mask =
+        G == kWarp ? 0xffffffffu
+                   : ((1u << G) - 1u) << ((threadIdx.x % kWarp) / G * G);
+    fct::ilqr_team<T, G, fct::kIlqrTangents>(
+        P, c, io, b, sm, fct::TeamLanes{lane, mask}, true, sweeps);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int r = 0; r < fct::kSweepRounds; ++r)
+      if (sweeps[r]) atomicAdd(&g_sweeps[r], (unsigned long long)sweeps[r]);
 }
 
 template <class T, int G>
@@ -159,13 +173,30 @@ extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
   return launch<double>(P, c, ptrs, B, G, teams, stream);
 }
 
+namespace {
+
+// A __device__ counter (words of unsigned long long) into out; with reset,
+// it starts again from 0.  Synchronises the device.
+template <class C>
+int read_counter(const C& counter, unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, counter, sizeof(C));
+  if (e == cudaSuccess && reset) {
+    const C zero{};
+    e = cudaMemcpyToSymbol(counter, &zero, sizeof(C));
+  }
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
 // The runs counted since the library was loaded or last reset, into *out;
 // with reset, the count starts again from 0.  Synchronises the device.
 extern "C" int fct_ilqr_runs(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_runs, sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero = 0;
-    e = cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
+  return read_counter(g_runs, out, reset);
+}
+
+// The sweeps counted since the library was loaded or last reset, per AL
+// round, into out[0..kSweepRounds); as fct_ilqr_runs.
+extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
+  return read_counter(g_sweeps, out, reset);
 }

@@ -197,6 +197,22 @@ def entry(name: str, symbol: str, argtypes: tuple):
     return fn
 
 
+def kernel_counter(name: str, counter: str, words: int = 1,
+                   reset: bool = False) -> list[int]:
+    """The ``words`` values of the ``__device__`` counter that the kernel of
+    ``csrc/<name>.cu`` keeps on the current card since its library was
+    loaded (or last reset), read by ``fct_<name>_<counter>``.  With
+    ``reset`` the counter starts again from 0.  Synchronises the card."""
+    fn = entry(name, f"fct_{name}_{counter}",
+               (ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int))
+    out = (ctypes.c_ulonglong * words)()
+    rc = fn(out, int(reset))
+    if rc != 0:
+        raise RuntimeError(f"reading {name}'s {counter} count failed: CUDA "
+                           f"error {rc}")
+    return list(out)
+
+
 def kernel_runs(name: str, reset: bool = False) -> int:
     """How often the kernel of ``csrc/<name>.cu`` ran on the current card
     since its library was loaded (or last reset), as the kernel counts
@@ -204,14 +220,7 @@ def kernel_runs(name: str, reset: bool = False) -> int:
     Unlike a wrapper's ``launches``, which counts the launches the host
     made or captured, this shows that a replayed graph's node ran.  With
     ``reset`` the count starts again from 0.  Synchronises the card."""
-    fn = entry(name, f"fct_{name}_runs",
-               (ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int))
-    out = ctypes.c_ulonglong(0)
-    rc = fn(ctypes.byref(out), int(reset))
-    if rc != 0:
-        raise RuntimeError(f"reading {name}'s run count failed: CUDA error "
-                           f"{rc}")
-    return out.value
+    return kernel_counter(name, "runs", reset=reset)[0]
 
 
 def current_stream_handle(index: int) -> int:

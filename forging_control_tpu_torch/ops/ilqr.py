@@ -42,7 +42,12 @@ from .plant import VARIANTS, press_params_c
 TEAMS = (4, 8, 16, 32)
 TEAM = 8
 WARP = 32
-SHARED_BYTES = 227 * 1024   # dynamic shared memory a block may opt in to
+# The AL rounds whose sweeps the kernel counts apart (csrc/bodies.cuh
+# kSweepRounds; later rounds add to the last).
+SWEEP_ROUNDS = 8
+# Dynamic shared memory a block may use: the 227 KB a block may opt in to,
+# less the block's sweep sums (csrc/bodies.cuh kIlqrSharedBytes).
+SHARED_BYTES = 227 * 1024 - 4 * SWEEP_ROUNDS
 
 
 def team_fields(N: int) -> int:
@@ -237,3 +242,14 @@ def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM) \
 
 
 ilqr_cuda.launches = 0
+
+
+def kernel_sweeps(reset: bool = False) -> list[int]:
+    """The Gauss-Newton iterations K5 computed on the current card since
+    its library was loaded (or last reset), summed over scenarios, per AL
+    round (:data:`SWEEP_ROUNDS` values, the later rounds in the last): an
+    iteration counts where the kernel ran its linearisation, backward sweep
+    and forward pass, and not where it skipped a repeat of an iteration
+    that took no step (``Diagnostics.iters`` counts those too).  With
+    ``reset`` the count starts again from 0.  Synchronises the card."""
+    return build.kernel_counter("ilqr", "sweeps", SWEEP_ROUNDS, reset)

@@ -65,6 +65,16 @@ def ilqr_host(kcfg, params, x0, ref, u_prev, v, lam,
     return out
 
 
+def sweeps_host(reset=False) -> list[int]:
+    """``ops.ilqr.kernel_sweeps`` for K5's body on the CPU: the host
+    library's count of the iterations it computed, per AL round."""
+    out = (ctypes.c_ulonglong * ilqr.SWEEP_ROUNDS)()
+    rc = _fn("fct_ilqr_sweeps", (ctypes.POINTER(ctypes.c_ulonglong),
+                                 ctypes.c_int))(out, int(reset))
+    assert rc == 0
+    return list(out)
+
+
 def solve_host(cfg, x0, ref, u_prev, v, lam, team=ilqr.TEAM) -> ilqr.Solved:
     """:func:`ilqr_host` at an ``MPCConfig``: K5's rounds for ``cfg``."""
     return ilqr_host(riccati.kernel_cfg(cfg, v.shape[1]), cfg.params, x0,
@@ -104,7 +114,8 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
     bodies on the CPU: ``build.on_card`` says yes for the CPU, and the CUDA
     wrappers' launches go to the host library (B1's to its plain version).
     Returns the launch counts of K4 and K5, which the patched wrappers keep,
-    and with ``sqp_counts`` those of the SQP's build, B1 and the search."""
+    and with ``sqp_counts`` those of the SQP's build, B1 and the search.
+    K5's sweep counter (``ilqr.kernel_sweeps``) reads the host library's."""
     lib()
     counts = {"plant": 0, "ilqr": 0}
     every = dict(counts, sqp_build=0, chol_solve=0, sqp_search=0)
@@ -132,6 +143,7 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
     monkeypatch.setattr(build, "on_card", cpu_is_card)
     monkeypatch.setattr(plant, "plant_step_cuda", plant_cuda)
     monkeypatch.setattr(ilqr, "ilqr_cuda", ilqr_cuda)
+    monkeypatch.setattr(ilqr, "kernel_sweeps", sweeps_host)
     monkeypatch.setattr(sqp, "sqp_build_cuda",
                         counted("sqp_build", sqp_build_host))
     monkeypatch.setattr(sqp, "sqp_search_cuda",
