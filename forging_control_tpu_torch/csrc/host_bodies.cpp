@@ -97,6 +97,10 @@ struct TeamSerial {
   template <class F> void each(F&& f) const {
     for (int lane = 0; lane < G; ++lane) f(lane);
   }
+  // The quads of four lanes in turn, each as K4's team on the CPU.
+  template <class F> void quads(F&& f) const {
+    for (int q = 0; q < G / 4; ++q) f(q, PlantSerial());
+  }
 };
 
 // Whether the card's kernel takes this configuration (ilqr.cu launch,
@@ -110,47 +114,52 @@ bool ilqr_takes(const fct::IlqrCfg* c, int B, int G) {
          && (G == 4 || G == 8 || G == 16 || G == 32);
 }
 
-// Scenarios lo..hi-1 by the team of G lanes, K tangents a unit; skip and
-// sweeps: ilqr_team's skip_repeats and sweeps.
-template <class T, int K>
+// Scenarios lo..hi-1 by the team of G lanes, K tangents a unit, K4's
+// constants from consts (in F); skip and sweeps: ilqr_team's skip_repeats
+// and sweeps.
+template <class T, int K, class F>
 void ilqr_scenarios(const fct::PressParams* P, const fct::IlqrCfg* c,
-                    const fct::IlqrIO<T>& io, int G, int lo, int hi,
-                    bool skip, unsigned* sweeps = nullptr) {
+                    const F* consts, const fct::IlqrIO<T>& io, int G, int lo,
+                    int hi, bool skip, unsigned* sweeps = nullptr) {
+  const fct::PlantConsts<T> C = fct::plant_consts<T>(consts);
   std::vector<T> sm(fct::ilqr_team_fields(c->N));
   for (int b = lo; b < hi; ++b) {
     std::fill(sm.begin(), sm.end(), T());
     T* s = sm.data();
     switch (G) {
       case 4:
-        fct::ilqr_team<T, 4, K>(*P, *c, io, b, s, TeamSerial<4>(), skip,
+        fct::ilqr_team<T, 4, K>(*P, C, *c, io, b, s, TeamSerial<4>(), skip,
                                 sweeps);
         break;
       case 8:
-        fct::ilqr_team<T, 8, K>(*P, *c, io, b, s, TeamSerial<8>(), skip,
+        fct::ilqr_team<T, 8, K>(*P, C, *c, io, b, s, TeamSerial<8>(), skip,
                                 sweeps);
         break;
       case 16:
-        fct::ilqr_team<T, 16, K>(*P, *c, io, b, s, TeamSerial<16>(), skip,
-                                 sweeps);
+        fct::ilqr_team<T, 16, K>(*P, C, *c, io, b, s, TeamSerial<16>(),
+                                 skip, sweeps);
         break;
       default:
-        fct::ilqr_team<T, 32, K>(*P, *c, io, b, s, TeamSerial<32>(), skip,
-                                 sweeps);
+        fct::ilqr_team<T, 32, K>(*P, C, *c, io, b, s, TeamSerial<32>(),
+                                 skip, sweeps);
     }
   }
 }
 
 // K5's sweeps per AL round on the CPU, as csrc/ilqr.cu g_sweeps counts
-// them on the card: a launch's sums added once at its end.
+// them on the card: a launch's sums added once at its end; and its runs by
+// team size (G = 4, 8, 16, 32), as g_team_runs.
 unsigned long long g_sweeps[fct::kSweepRounds] = {};
+unsigned long long g_team_runs[4] = {};
 
 template <class T>
-int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
-         int B, int G, int teams) {
+int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, const T* consts,
+         void* const* p, int B, int G, int teams) {
   if (!ilqr_takes<T>(c, B, G) || teams < 1) return 1;
+  g_team_runs[G == 4 ? 0 : G == 8 ? 1 : G == 16 ? 2 : 3] += 1;
   unsigned sweeps[fct::kSweepRounds] = {};
-  ilqr_scenarios<T, fct::kIlqrTangents>(P, c, fct::ilqr_io<T>(p), G, 0, B,
-                                        true, sweeps);
+  ilqr_scenarios<T, fct::kIlqrTangents>(P, c, consts, fct::ilqr_io<T>(p), G,
+                                        0, B, true, sweeps);
   for (int r = 0; r < fct::kSweepRounds; ++r) g_sweeps[r] += sweeps[r];
   return 0;
 }
@@ -243,14 +252,20 @@ int plant_ops(const fct::PressParams* P, const fct::PlantCfg* c,
 // blocks, 3 the backward sweep, 4 the forward sweep, 5 the accept rule,
 // the AL update and the diagnostics).  ops: the function's operations,
 // each stage linearised in one unit of 7 tangents (K = 7: no value
-// evaluated twice) and every iteration run; exec_ops, unless null: those
-// the kernel runs (K = kIlqrTangents: each unit evaluates its stage's
-// values anew; an iteration that repeats the last one skipped).  The
-// partition over the team's lanes adds none.
+// evaluated twice), every iteration run and each rollout's stage on one
+// lane (aug_step, the team of kFunctionTeam lanes, whatever G is); exec_ops,
+// unless null: those the kernel runs with G lanes (K = kIlqrTangents: each
+// unit evaluates its stage's values anew; an iteration that repeats the
+// last one skipped; at G >= 16 the rollouts' rhs_four, both sides of each
+// select and every lane of every quad).  The partition of the one-lane
+// rollouts over the team's lanes adds none.
+constexpr int kFunctionTeam = 8;
+
 template <class F>
 int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
-             void* const* p, int B, int G, int teams, int threads,
-             unsigned long long* ops, unsigned long long* exec_ops) {
+             const F* consts, void* const* p, int B, int G, int teams,
+             int threads, unsigned long long* ops,
+             unsigned long long* exec_ops) {
   typedef fct::Counted<F> C;
   if (!ilqr_takes<F>(c, B, G) || teams < 1) return 1;
   const long long N = c->N, nc = c->nc;
@@ -284,10 +299,11 @@ int ilqr_ops(const fct::PressParams* P, const fct::IlqrCfg* c,
   cio.zc = zc.data();
   if (exec_ops)
     counted_chunks(B, threads, exec_ops, [&](int lo, int hi) {
-      ilqr_scenarios<C, fct::kIlqrTangents>(P, c, cio, G, lo, hi, true);
+      ilqr_scenarios<C, fct::kIlqrTangents>(P, c, consts, cio, G, lo, hi,
+                                            true);
     });
   counted_chunks(B, threads, ops, [&](int lo, int hi) {
-    ilqr_scenarios<C, 7>(P, c, cio, G, lo, hi, false);
+    ilqr_scenarios<C, 7>(P, c, consts, cio, kFunctionTeam, lo, hi, false);
   });
   counted_out(u0, io.u0);
   counted_out(v, io.v);
@@ -576,19 +592,21 @@ extern "C" int fct_plant_ops_f64(const fct::PressParams* P,
 }
 
 extern "C" int fct_ilqr_ops_f32(const fct::PressParams* P,
-                                const fct::IlqrCfg* c, void* const* ptrs,
-                                int B, int G, int teams, int threads,
-                                unsigned long long* ops,
+                                const fct::IlqrCfg* c, const float* consts,
+                                void* const* ptrs, int B, int G, int teams,
+                                int threads, unsigned long long* ops,
                                 unsigned long long* exec_ops) {
-  return ilqr_ops<float>(P, c, ptrs, B, G, teams, threads, ops, exec_ops);
+  return ilqr_ops<float>(P, c, consts, ptrs, B, G, teams, threads, ops,
+                         exec_ops);
 }
 
 extern "C" int fct_ilqr_ops_f64(const fct::PressParams* P,
-                                const fct::IlqrCfg* c, void* const* ptrs,
-                                int B, int G, int teams, int threads,
-                                unsigned long long* ops,
+                                const fct::IlqrCfg* c, const double* consts,
+                                void* const* ptrs, int B, int G, int teams,
+                                int threads, unsigned long long* ops,
                                 unsigned long long* exec_ops) {
-  return ilqr_ops<double>(P, c, ptrs, B, G, teams, threads, ops, exec_ops);
+  return ilqr_ops<double>(P, c, consts, ptrs, B, G, teams, threads, ops,
+                          exec_ops);
 }
 
 extern "C" int fct_ilqr_team_fields(int N) {
@@ -616,18 +634,27 @@ extern "C" int fct_plant_f64(const fct::PressParams* P,
 }
 
 extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, int G, int teams) {
-  return ilqr<float>(P, c, ptrs, B, G, teams);
+                            const float* consts, void* const* ptrs, int B,
+                            int G, int teams) {
+  return ilqr<float>(P, c, consts, ptrs, B, G, teams);
 }
 
 extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, int G, int teams) {
-  return ilqr<double>(P, c, ptrs, B, G, teams);
+                            const double* consts, void* const* ptrs, int B,
+                            int G, int teams) {
+  return ilqr<double>(P, c, consts, ptrs, B, G, teams);
 }
 
 // csrc/ilqr.cu's fct_ilqr_sweeps for the host build's launches.
 extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
   std::copy(g_sweeps, g_sweeps + fct::kSweepRounds, out);
   if (reset) std::fill(g_sweeps, g_sweeps + fct::kSweepRounds, 0ULL);
+  return 0;
+}
+
+// csrc/ilqr.cu's fct_ilqr_team_runs for the host build's launches.
+extern "C" int fct_ilqr_team_runs(unsigned long long* out, int reset) {
+  std::copy(g_team_runs, g_team_runs + 4, out);
+  if (reset) std::fill(g_team_runs, g_team_runs + 4, 0ULL);
   return 0;
 }

@@ -33,9 +33,15 @@
 // remains is the chain of one stage's physics
 // (IEEE division, square root, pow, log and exp, unfused): the forward
 // sweep rolls N stages one after another on each candidate's lane, and
-// the linearisation takes ceil(N x 2 / G) units a lane (PERF.md).  G = 8
-// is the default: 4 teams fill a warp, and at 255 registers the 8 warps
-// an SM holds keep B = 4,096 scenarios at N = 10 in one wave.  A
+// the linearisation takes ceil(N x 2 / G) units a lane (PERF.md).  At
+// G = 8, 4 teams fill a warp, and at 255 registers the 8 warps an SM
+// holds keep B = 4,096 scenarios at N = 10 in one wave.  Where the card
+// has room (ops/ilqr.py team_size: the largest G whose one wave holds the
+// batch), a scenario takes 16 or 32 lanes, and there the two rollouts run
+// on quads of four lanes, each evaluation of rhs split over its quad one
+// op kind a step as in K4 (bodies.cuh rhs_four, from K4's constants), so
+// a stage's chain is K4's shorter one; that code is compiled only at
+// G >= 16, and the same bits come out at every G.  A
 // scenario's blocks (108 N + 185 values) live in the
 // block's dynamic shared memory, one slice a team, so a phase reads what
 // another lane wrote at shared-memory latency; only the line search's
@@ -54,8 +60,11 @@
 // PyTorch's, so the solve agrees with the plain one to rounding, about
 // 1e-15 in float64 at N = 5 and 10; the team changes no bit of it.
 //
-// The C entry points that launch do so on the given stream, allocate
-// nothing, do not synchronise, and return cudaGetLastError(), or
+// The C entry points take, besides the press parameters, K4's constants in
+// T (bodies.cuh PlantConsts, ops/plant.py plant_consts at the solver's dt
+// and substeps), which the rollouts read at G >= 16.  Those that launch do
+// so on the given stream, allocate nothing, do not synchronise, and return
+// cudaGetLastError(), or
 // cudaErrorInvalidValue for what they cannot run: N < 1, one scenario's
 // blocks beyond 227 KB, nc other than 2 and 4, substeps < 1, a team size
 // not built (float32: 4, 8, 16, 32; float64: 8), or teams that do not fit
@@ -69,9 +78,11 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kSharedBytes = fct::kIlqrSharedBytes;
-// The default team size (ops/ilqr.py TEAM); float64 is built for it alone,
-// float32 for every size (the others are there to be timed), which keeps
-// this source's build near the other sources'.
+// The team size of float64 (ops/ilqr.py TEAM), which is built for it
+// alone, and of float32 where the card holds the batch in one wave at no
+// larger G; float32 is built for every size (team_size picks 8, 16 or 32;
+// 4 is there to be timed), which keeps this source's build near the other
+// sources'.
 constexpr int kTeam = 8;
 
 // The kernel's own count of its runs on this card: the first thread of the
@@ -83,16 +94,24 @@ __device__ unsigned long long g_runs = 0;
 // resets them).  A block sums its teams' counts in shared memory, and its
 // first thread adds the sums here once, at the block's end.
 __device__ unsigned long long g_sweeps[fct::kSweepRounds] = {};
+// The runs by team size, G = 4, 8, 16, 32 (log2(G) - 2): the first thread
+// of the first block adds one beside g_runs, so that a replayed graph shows
+// which schedule its node ran (fct_ilqr_team_runs reads and resets them).
+__device__ unsigned long long g_team_runs[4] = {};
 
 // Blocks of at most one warp, each holding `teams` teams of G lanes.
 template <class T, int G>
 __global__ void __launch_bounds__(kWarp)
 ilqr_kernel(const __grid_constant__ fct::PressParams P,
             const __grid_constant__ fct::IlqrCfg c,
-            const __grid_constant__ fct::IlqrIO<T> io, int B, int teams) {
+            const __grid_constant__ fct::IlqrIO<T> io, int B, int teams,
+            const __grid_constant__ fct::PlantConsts<T> C) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned sweeps[fct::kSweepRounds];
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs, 1ULL);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(&g_runs, 1ULL);
+    atomicAdd(&g_team_runs[G == 4 ? 0 : G == 8 ? 1 : G == 16 ? 2 : 3], 1ULL);
+  }
   for (int r = threadIdx.x; r < fct::kSweepRounds; r += blockDim.x)
     sweeps[r] = 0;
   __syncthreads();
@@ -106,7 +125,7 @@ ilqr_kernel(const __grid_constant__ fct::PressParams P,
         G == kWarp ? 0xffffffffu
                    : ((1u << G) - 1u) << ((threadIdx.x % kWarp) / G * G);
     fct::ilqr_team<T, G, fct::kIlqrTangents>(
-        P, c, io, b, sm, fct::TeamLanes{lane, mask}, true, sweeps);
+        P, C, c, io, b, sm, fct::TeamLanes{lane, mask}, true, sweeps);
   }
   __syncthreads();
   if (threadIdx.x == 0)
@@ -116,7 +135,8 @@ ilqr_kernel(const __grid_constant__ fct::PressParams P,
 
 template <class T, int G>
 int launch_team(const fct::PressParams* P, const fct::IlqrCfg* c,
-                void* const* p, int B, int teams, cudaStream_t stream) {
+                const T* consts, void* const* p, int B, int teams,
+                cudaStream_t stream) {
   const long long bytes =
       (long long)teams * fct::ilqr_team_fields(c->N) * sizeof(T);
   if (teams < 1 || teams * G > kWarp || bytes > kSharedBytes)
@@ -129,13 +149,13 @@ int launch_team(const fct::PressParams* P, const fct::IlqrCfg* c,
   }
   const fct::IlqrIO<T> io = fct::ilqr_io<T>(p);
   ilqr_kernel<T, G><<<(B + teams - 1) / teams, teams * G, bytes, stream>>>(
-      *P, *c, io, B, teams);
+      *P, *c, io, B, teams, fct::plant_consts<T>(consts));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
-int launch(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
-           int B, int G, int teams, void* stream) {
+int launch(const fct::PressParams* P, const fct::IlqrCfg* c, const T* k,
+           void* const* p, int B, int G, int teams, void* stream) {
   if (B < 0 || c->N < 1
       || (long long)fct::ilqr_team_fields(c->N) * sizeof(T) > kSharedBytes
       || (c->nc != 2 && c->nc != 4) || c->substeps < 1)
@@ -143,14 +163,14 @@ int launch(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
   if (B == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 8) {   // float64: the default team only
-    if (G == kTeam) return launch_team<T, kTeam>(P, c, p, B, teams, s);
+    if (G == kTeam) return launch_team<T, kTeam>(P, c, k, p, B, teams, s);
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     switch (G) {
-      case 4: return launch_team<T, 4>(P, c, p, B, teams, s);
-      case 8: return launch_team<T, 8>(P, c, p, B, teams, s);
-      case 16: return launch_team<T, 16>(P, c, p, B, teams, s);
-      case 32: return launch_team<T, 32>(P, c, p, B, teams, s);
+      case 4: return launch_team<T, 4>(P, c, k, p, B, teams, s);
+      case 8: return launch_team<T, 8>(P, c, k, p, B, teams, s);
+      case 16: return launch_team<T, 16>(P, c, k, p, B, teams, s);
+      case 32: return launch_team<T, 32>(P, c, k, p, B, teams, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -162,15 +182,15 @@ int launch(const fct::PressParams* P, const fct::IlqrCfg* c, void* const* p,
 extern "C" int fct_ilqr_tangents() { return fct::kIlqrTangents; }
 
 extern "C" int fct_ilqr_f32(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, int G, int teams,
-                            void* stream) {
-  return launch<float>(P, c, ptrs, B, G, teams, stream);
+                            const float* consts, void* const* ptrs, int B,
+                            int G, int teams, void* stream) {
+  return launch<float>(P, c, consts, ptrs, B, G, teams, stream);
 }
 
 extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
-                            void* const* ptrs, int B, int G, int teams,
-                            void* stream) {
-  return launch<double>(P, c, ptrs, B, G, teams, stream);
+                            const double* consts, void* const* ptrs, int B,
+                            int G, int teams, void* stream) {
+  return launch<double>(P, c, consts, ptrs, B, G, teams, stream);
 }
 
 namespace {
@@ -199,4 +219,10 @@ extern "C" int fct_ilqr_runs(unsigned long long* out, int reset) {
 // round, into out[0..kSweepRounds); as fct_ilqr_runs.
 extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
   return read_counter(g_sweeps, out, reset);
+}
+
+// The runs counted by team size (G = 4, 8, 16, 32) into out[0..4); as
+// fct_ilqr_runs.
+extern "C" int fct_ilqr_team_runs(unsigned long long* out, int reset) {
+  return read_counter(g_team_runs, out, reset);
 }

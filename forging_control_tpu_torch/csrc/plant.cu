@@ -88,7 +88,8 @@ plant_team_kernel(const __grid_constant__ fct::PlantConsts<T> C,
   fct::plant_team<T, V>(C, c, xt + 5 * b, xm + 5 * b, u[b],
                         w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
                         xn + 5 * b, xmn + 5 * b, Fd + b, store,
-                        fct::PlantLanes{int(threadIdx.x % kTeam)});
+                        fct::PlantLanes{int(threadIdx.x % kTeam),
+                                        0xffffffffu});
 }
 
 // The body's float32 square root (bodies.cuh sqrt_rn) of n values, for the

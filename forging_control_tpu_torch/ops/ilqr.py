@@ -15,12 +15,13 @@ dispatches (:func:`~forging_control_tpu_torch.solver.riccati.solve_batch`,
 the kernel where the configuration asks for it.
 
 :func:`ilqr_cuda` checks its inputs, allocates every output, picks the
-launch geometry (the team size and the teams a block holds), takes the
-configuration's scalars as kernel arguments (so a captured control period
-makes no tensor from host data and reads nothing back), launches on the
-current stream and counts its launches in ``ilqr_cuda.launches``.  The
-horizon is bounded by one scenario's blocks in a block's shared memory
-(:func:`max_horizon`): N <= 536 in float32, 267 in float64.
+launch geometry (the team size from the batch, :func:`team_size`, and the
+teams a block holds), takes the configuration's scalars as kernel arguments
+(so a captured control period makes no tensor from host data and reads
+nothing back), launches on the current stream and counts its launches in
+``ilqr_cuda.launches``.  The horizon is bounded by one scenario's blocks in
+a block's shared memory (:func:`max_horizon`): N <= 536 in float32, 267 in
+float64.
 """
 
 from __future__ import annotations
@@ -34,14 +35,22 @@ import torch
 
 from . import build
 from ..physics.scaling import U_SCALE
-from .plant import VARIANTS, press_params_c
+from .plant import VARIANTS, plant_consts_at, press_params_c
 
-# Lanes a scenario (G): the sizes the kernel is built for (float64: the
-# default alone), and the default (the fastest at N = 10, and at N = 25
-# over both strokes, on an H100; PERF.md).
+# Lanes a scenario (G): the sizes the kernel is built for (float64: TEAM
+# alone), and TEAM, float64's and that of a batch that fills the card (the
+# fastest at N = 10, B = 4,096, and at N = 25 over both strokes, on an H100;
+# PERF.md); team_size picks float32's.
 TEAMS = (4, 8, 16, 32)
 TEAM = 8
 WARP = 32
+# What an SM of the card the kernel is built for (sm_90) holds of it: 64 K
+# registers, so 8 warps at the kernel's 255 registers a thread (blocks of
+# one warp); 228 KB of shared memory, of which the system reserves 1 KB a
+# block.
+SM_WARPS = 8
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
 # The AL rounds whose sweeps the kernel counts apart (csrc/bodies.cuh
 # kSweepRounds; later rounds add to the last).
 SWEEP_ROUNDS = 8
@@ -79,6 +88,50 @@ def teams_per_block(N: int, dtype: torch.dtype, team: int = TEAM) -> int:
     take longer, PERF.md.)"""
     size = torch.empty((), dtype=dtype).element_size()
     return max(1, min(WARP // team, SHARED_BYTES // (team_fields(N) * size)))
+
+
+def resident_teams(N: int, dtype: torch.dtype, team: int) -> int:
+    """Teams of ``team`` lanes that one SM holds at once at horizon N in
+    ``dtype``: blocks of :func:`teams_per_block` teams, as many as the
+    registers (:data:`SM_WARPS` blocks of one warp) and the shared memory
+    (the teams' blocks, the block's sweep sums and the system's reserve)
+    allow."""
+    size = torch.empty((), dtype=dtype).element_size()
+    per_block = teams_per_block(N, dtype, team)
+    block_bytes = (per_block * team_fields(N) * size + 4 * SWEEP_ROUNDS
+                   + BLOCK_RESERVED_BYTES)
+    return per_block * max(1, min(SM_WARPS, SM_SHARED_BYTES // block_bytes))
+
+
+@functools.lru_cache(maxsize=None)
+def team_size(B: int, N: int, dtype: torch.dtype, sms: int) -> int:
+    """The kernel's team size for B scenarios at horizon N in ``dtype`` on a
+    card of ``sms`` SMs: in float32 the largest of 32 and 16 whose single
+    wave (``sms`` x :func:`resident_teams`) holds all B, where a scenario's
+    two rollouts run on quads of four lanes; else :data:`TEAM`, the only
+    size float64 is built for.  On an H100 (132 SMs) at N = 10: 32 up to
+    1,056 scenarios, 16 up to 2,112, then 8; at N = 25 the same edges."""
+    if dtype == torch.float32:
+        for team in (32, 16):
+            if B <= sms * resident_teams(N, dtype, team):
+                return team
+    return TEAM
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def default_team(v: torch.Tensor) -> int:
+    """The team size for a launch on ``v`` (B, N): :func:`team_size` on a
+    card, from its SM count; :data:`TEAM` for CPU tensors (the host build's
+    tests), where there is no card to fill."""
+    if v.device.type != "cuda":
+        return TEAM
+    B, N = v.shape
+    return team_size(B, N, v.dtype, sm_count(v.device.index))
 
 
 class IlqrCfgC(ctypes.Structure):
@@ -136,14 +189,15 @@ class Solved(NamedTuple):
 
 
 _SYMBOLS = {torch.float32: "fct_ilqr_f32", torch.float64: "fct_ilqr_f64"}
-_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda",
-          team: int = TEAM) -> None:
+          team: int | None = None) -> None:
     """Raise unless the inputs are what the kernel takes at the
     configuration ``kcfg`` (an :class:`IlqrCfgC`) with teams of ``team``
-    lanes (one of :data:`TEAMS`): tensors on one ``device_type`` device of
+    lanes (one of :data:`TEAMS`; None: :func:`default_team`): tensors on
+    one ``device_type`` device of
     one dtype (float32 or float64), x0 (B, 5), ref and u_prev (B,), v
     (B, N) with N = kcfg.N and 1 <= N <= :func:`max_horizon` of the dtype,
     lam (B, N, kcfg.nc), contiguous, none requiring a gradient."""
@@ -170,6 +224,8 @@ def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda",
         raise ValueError(f"ilqr_cuda supports 1 <= N <= {limit} in "
                          f"{v.dtype} (one scenario's blocks in "
                          f"{SHARED_BYTES} bytes of shared memory), got N={N}")
+    if team is None:
+        team = default_team(v)
     if team not in TEAMS:
         raise ValueError(f"ilqr_cuda: team must be one of {TEAMS}, got "
                          f"{team}")
@@ -196,14 +252,18 @@ def check(kcfg, x0, ref, u_prev, v, lam, device_type: str = "cuda",
         raise ValueError(f"substeps must be at least 1, got {kcfg.substeps}")
 
 
-def prepare(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM):
+def prepare(kcfg, params, x0, ref, u_prev, v, lam, team: int | None = None):
     """The outputs (a :class:`Solved`) and the candidates' states'
     scratch, allocated, and the C arguments of one launch without the
     stream, at the configuration ``kcfg``, the press parameters ``params``
-    and teams of ``team`` lanes, as many as :func:`teams_per_block` puts in
-    a block."""
+    (and K4's constants at the solver's dt and substeps, which the
+    rollouts read at G >= 16) and teams of ``team`` lanes (None:
+    :func:`default_team`), as many as :func:`teams_per_block` puts in a
+    block."""
     B, N = v.shape
     dtype, device = v.dtype, v.device
+    if team is None:
+        team = default_team(v)
     like = lambda *shape: torch.empty(*shape, dtype=dtype,  # noqa: E731
                                       device=device)
     rounds = kcfg.al_iters * kcfg.gn_iters
@@ -218,21 +278,23 @@ def prepare(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM):
         None if a is None else a.data_ptr() for a in (
             x0, ref, u_prev, v, lam, *out, zc)))
     args = (ctypes.addressof(press_params_c(params)),
-            ctypes.addressof(kcfg), ptrs, B, team,
-            teams_per_block(N, dtype, team))
+            ctypes.addressof(kcfg),
+            plant_consts_at(params, kcfg.dt, kcfg.substeps, dtype), ptrs,
+            B, team, teams_per_block(N, dtype, team))
     return out, zc, args
 
 
-def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam, team: int = TEAM) \
-        -> Solved:
+def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam,
+              team: int | None = None) -> Solved:
     """Kernel K5: the AL-iLQR rounds of ``solver/riccati.py`` at the
     configuration ``kcfg`` (an :class:`IlqrCfgC`, which
     ``riccati.kernel_cfg`` builds) and the press parameters ``params``, for
     B scenarios from the warm start (v, lam), with the initial states x0,
     the references and the previous commands u_prev (physical units), all
     contiguous CUDA tensors of one dtype (see :func:`check`); ``team``
-    lanes a scenario.  The active-set polish is not the kernel's:
-    ``riccati.solve_batch`` runs it after the launch."""
+    lanes a scenario (None: :func:`team_size` for this batch and card).
+    The active-set polish is not the kernel's: ``riccati.solve_batch`` runs
+    it after the launch."""
     check(kcfg, x0, ref, u_prev, v, lam, team=team)
     fn = build.entry("ilqr", _SYMBOLS[v.dtype], _ARGTYPES)
     out, _zc, args = prepare(kcfg, params, x0, ref, u_prev, v, lam, team)
@@ -253,3 +315,12 @@ def kernel_sweeps(reset: bool = False) -> list[int]:
     that took no step (``Diagnostics.iters`` counts those too).  With
     ``reset`` the count starts again from 0.  Synchronises the card."""
     return build.kernel_counter("ilqr", "sweeps", SWEEP_ROUNDS, reset)
+
+
+def kernel_team_runs(reset: bool = False) -> dict[int, int]:
+    """K5's runs on the current card since its library was loaded (or last
+    reset), by team size G (4, 8, 16, 32), as the kernel counts itself: in
+    a replayed graph, which schedule its node ran.  With ``reset`` the
+    count starts again from 0.  Synchronises the card."""
+    return dict(zip(TEAMS, build.kernel_counter("ilqr", "team_runs",
+                                                len(TEAMS), reset)))

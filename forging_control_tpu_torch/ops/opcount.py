@@ -90,8 +90,11 @@ def ilqr_ops(kcfg, params, x0, ref, u_prev, v, lam, threads=None,
     value counted once, every iteration run.  With ``executed``,
     ``counts["executed"]`` is the same reading for what the kernel runs:
     its linearisation units each evaluate their stage's values again, and
-    it skips the iterations that repeat a step not taken
-    (``csrc/host_bodies.cpp`` ``ilqr_ops``)."""
+    it skips the iterations that repeat a step not taken, and at
+    ``team`` 16 or 32 its rollouts run on quads of four lanes (K4's
+    ``rhs_four``: both sides of each select, every lane of every quad).
+    The function's count does not depend on ``team``: it takes the
+    one-lane rollouts (``csrc/host_bodies.cpp`` ``ilqr_ops``)."""
     ilqr.check(kcfg, x0, ref, u_prev, v, lam, device_type="cpu", team=team)
     out, _zc, args = ilqr.prepare(kcfg, params, x0, ref, u_prev, v, lam,
                                   team)

@@ -103,7 +103,7 @@ def plant_consts(params: press.PressParams, dt: float, substeps: int,
     which is the card's), and the RK4 steps ``0.5 h``, ``h`` and ``h / 6``
     with ``h = dt / substeps`` in double, as ``rk4_step`` computes them.
     Cached, so the array outlives every launch that points to it (and
-    :func:`prepare` reads its address from :func:`_plant_consts_at`)."""
+    :func:`prepare` reads its address from :func:`plant_consts_at`)."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     P = press_params_c(params)
     divisors = {"half": 0.5, "lin_den": P.lin_den, "two": 2.0, "three": 3.0,
@@ -118,7 +118,9 @@ def plant_consts(params: press.PressParams, dt: float, substeps: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _plant_consts_at(params, dt, substeps, dtype) -> int:
+def plant_consts_at(params, dt, substeps, dtype) -> int:
+    """The address of :func:`plant_consts`'s array, for a launch's
+    arguments (K4's, and K5's rollouts at G >= 16)."""
     return plant_consts(params, dt, substeps, dtype).ctypes.data
 
 
@@ -218,7 +220,7 @@ def prepare(cfg, x_true, x_meas, u, w, v, team: int = TEAM):
     C = _plant_cfg_c(float(cfg.dt), int(cfg.substeps), cfg.variant,
                      None if cfg.state_clip is None
                      else tuple(float(s) for s in cfg.state_clip))
-    K = _plant_consts_at(cfg.params, float(cfg.dt), int(cfg.substeps),
+    K = plant_consts_at(cfg.params, float(cfg.dt), int(cfg.substeps),
                          x_true.dtype)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     args = (ctypes.addressof(P), ctypes.addressof(C), K,

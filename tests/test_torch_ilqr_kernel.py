@@ -159,17 +159,104 @@ def test_torch_ilqr_host_matches_plain_and_jax(case, start):
         assert (out.trace[:, 1:, 3] == 0).any()
 
 
-@pytest.mark.parametrize("team", [t for t in ilqr.TEAMS if t != ilqr.TEAM])
-def test_torch_ilqr_host_same_bits_for_every_team(team):
+# The team's partition at G = 16 and 32, where the rollouts run on quads
+# of four lanes (rhs_four), against G = 8's one-lane rollouts (aug_step):
+# N = 1 to 30, the three variants, p_max, the trace on and off, float64
+# and (N = 10, fast_5x1) float32.
+QUAD_CASES = {
+    "N1_smooth_trace": riccati.MPCConfig(horizon=1, variant="smooth",
+                                         gn_iters=3, al_iters=2,
+                                         record_trace=True),
+    "N5_raw_pmax": riccati.MPCConfig(horizon=5, variant="raw", gn_iters=3,
+                                     al_iters=2, p_max=32e6),
+    "N10_fast_f32_trace": riccati.MPCConfig.fast(
+        horizon=10, gn_iters=5, variant="smooth", record_trace=True),
+    "N25_clamp": riccati.MPCConfig(horizon=25, variant="clamp", gn_iters=2,
+                                   al_iters=2),
+    "N30_teacher_pmax_trace": riccati.MPCConfig(
+        horizon=30, variant="smooth", gn_iters=6, al_iters=2, p_max=32e6,
+        record_trace=True),
+}
+
+
+def _quad_inputs(case, start):
+    """The iLQR parity scenarios, cold (zeros) or warm (the cold solve's
+    shifted solution from states moved by 1 %), on the CPU."""
+    cfg = QUAD_CASES[case]
+    N, B = cfg.horizon, len(XS)
+    dtype = torch.float32 if "f32" in case else torch.float64
+    x0, ref, up = (torch.as_tensor(a, dtype=dtype) for a in (XS, REFS, UPS))
+    v = torch.zeros(B, N, dtype=dtype)
+    lam = torch.zeros(B, N, _nc(cfg), dtype=dtype)
+    if start == "warm":
+        cold = hk.solve_host(cfg, x0, ref, up, v, lam)
+        st = riccati.shift_state(riccati.ILQRState(cold.v, cold.lam))
+        move = np.random.default_rng(N).standard_normal(XS.shape)
+        x0 = torch.as_tensor(XS * (1.0 + 0.01 * move), dtype=dtype)
+        up, v, lam = cold.u0, st.v.contiguous(), st.lam.contiguous()
+    return cfg, (x0, ref, up, v, lam)
+
+
+@pytest.mark.parametrize("team,case,start", [
+    *(pytest.param(t, None, "warm", id=str(t))
+      for t in ilqr.TEAMS if t != ilqr.TEAM),
+    *(pytest.param(t, case, start, id=f"{t}-{case}-{start}")
+      for t in (16, 32) for case in QUAD_CASES for start in ("cold", "warm"))])
+def test_torch_ilqr_host_same_bits_for_every_team(team, case, start):
     """Every value is computed by one lane in one order, whatever the team
-    size: the outputs at each G equal the default team's bit for bit."""
-    xs, ups, state0, _ = _jax_runs("N25_clamp")["warm"]
-    cfg = _port_cfg(CASES["N25_clamp"])
-    args = hk.float64(xs, REFS, ups, state0.v, state0.lam)
+    size, and at G = 16 and 32 the quads' rollouts (rhs_four) give
+    aug_step's bits: the outputs at each G equal the default team's bit
+    for bit.  (case None: the JAX package's warm start at N = 25.)"""
+    if case is None:
+        xs, ups, state0, _ = _jax_runs("N25_clamp")["warm"]
+        cfg = _port_cfg(CASES["N25_clamp"])
+        args = hk.float64(xs, REFS, ups, state0.v, state0.lam)
+    else:
+        cfg, args = _quad_inputs(case, start)
     want = hk.solve_host(cfg, *args)
     got = hk.solve_host(cfg, *args, team=team)
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [10, 25])
+def test_torch_ilqr_team_size_rule(N):
+    """The team size from the batch on a card of 132 SMs (an H100): the
+    largest G of 32 and 16 whose one wave holds the batch, else 8; 8 in
+    float64 whatever the batch."""
+    f32, f64 = torch.float32, torch.float64
+    assert ilqr.resident_teams(N, f32, 32) == 8
+    assert ilqr.resident_teams(N, f32, 16) == 16
+    assert ilqr.resident_teams(N, f32, 8) == {10: 32, 25: 16}[N]
+    want = {1: 32, 256: 32, 1024: 32, 1056: 32, 1057: 16, 2048: 16,
+            2112: 16, 2113: 8, 4096: 8}
+    for B, G in want.items():
+        assert ilqr.team_size(B, N, f32, 132) == G, B
+        assert ilqr.team_size(B, N, f64, 132) == ilqr.TEAM
+    assert ilqr.team_size(1, N, f32, 1) == 32
+    assert ilqr.team_size(9, N, f32, 1) == 16
+
+
+def test_torch_ilqr_host_team_runs_by_chosen_team(monkeypatch):
+    """Routed to the host build, K5 runs at the team the rule picks for
+    each launch (an H100's 132 SMs: float32 B = 5 takes 32, B = 1,100
+    takes 16; float64 takes 8), and the host counter adds one a launch
+    under that G."""
+    counts = hk.route_kernels_to_host(monkeypatch)
+    ilqr.kernel_team_runs(reset=True)
+    for B, dtype in ((5, torch.float32), (1100, torch.float32),
+                     (5, torch.float64), (5, torch.float32)):
+        cfg = riccati.MPCConfig(horizon=2, variant="smooth", gn_iters=1,
+                                al_iters=1)
+        x0 = torch.tensor(press.X0_REFERENCE, dtype=dtype).repeat(B, 1)
+        ref = torch.linspace(-0.5, 0.5, B, dtype=dtype)
+        st = riccati.ILQRState(torch.zeros(B, 2, dtype=dtype),
+                               torch.zeros(B, 2, 2, dtype=dtype))
+        riccati.solve_batch(cfg, x0, ref, torch.zeros(B, dtype=dtype), st)
+    assert counts["ilqr"] == 4
+    assert ilqr.kernel_team_runs() == {4: 0, 8: 1, 16: 1, 32: 2}
+    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 1, 16: 1, 32: 2}
+    assert ilqr.kernel_team_runs() == dict.fromkeys(ilqr.TEAMS, 0)
 
 
 def test_torch_ilqr_shared_layout_and_horizon_limit():

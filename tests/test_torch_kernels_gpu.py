@@ -10,6 +10,8 @@ there without the conftest:
     python -m pytest -p no:cacheprovider --noconftest -q tests/test_torch_kernels_gpu.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -455,6 +457,91 @@ def test_torch_ilqr_sweep_counter_on_gpu():
         want[-1] += sum(first[ilqr.SWEEP_ROUNDS:])
         assert got == want, (N, gn, al)
         assert ilqr.kernel_sweeps() == [0] * ilqr.SWEEP_ROUNDS
+
+
+def _ilqr_cold(B, N, seed):
+    """A cold start at the reference state, float32, on the card:
+    references in [-0.9, 0.9] (both strokes)."""
+    ref = torch.from_numpy(np.random.RandomState(seed).uniform(-0.9, 0.9, B))
+    x0 = torch.tensor(press.X0_REFERENCE, device="cuda").repeat(B, 1)
+    return (x0, ref.float().cuda(), torch.zeros(B, device="cuda"),
+            torch.zeros(B, N, device="cuda"),
+            torch.zeros(B, N, 2, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_torch_ilqr_team_rule_same_bits_on_gpu():
+    """K5 at the team size the rule picks (``ilqr.team_size``: 32 or 16
+    where the card holds the batch in one wave, the rollouts then on quads
+    of four lanes) gives G = 8's outputs bit for bit: B = 1, 256, 4,096 at
+    N = 10 (``fast_5x1``, the trace on) and N = 25 (5 x 2)."""
+    _need_card()
+    for N in (10, 25):
+        cfg = (bench.PRESETS["fast_5x1"](horizon=10, variant="smooth",
+                                         record_trace=True) if N == 10
+               else riccati.MPCConfig(horizon=25, variant="smooth"))
+        kcfg = riccati.kernel_cfg(cfg, N)
+        for B in (1, 256, 4096):
+            args = _ilqr_cold(B, N, B + N)
+            rule = ilqr.team_size(B, N, torch.float32,
+                                  ilqr.sm_count(torch.cuda.current_device()))
+            assert rule == (8 if B == 4096 else 32)
+            got = ilqr.ilqr_cuda(kcfg, cfg.params, *args)
+            want = ilqr.ilqr_cuda(kcfg, cfg.params, *args, team=8)
+            for f, a, b in zip(ilqr.Solved._fields, got, want):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    (N, B, rule, f)
+
+
+@pytest.mark.gpu
+def test_torch_ilqr_team_runs_on_gpu():
+    """K5's runs by team size (``ilqr.kernel_team_runs``) through replayed
+    ``make_stepper`` periods (B = 1: G = 32, one run a period) and a batch
+    the rule gives G = 8 (B = 4,096 at N = 10); read and reset."""
+    _need_card()
+    cfg = bench.PRESETS["fast_5x1"](horizon=10, variant="smooth")
+    ctrl = cl.MPCController(cfg, backend="ilqr")
+    step, carry = cl.make_stepper(cl.LoopConfig(variant="smooth"), ctrl,
+                                  generator=torch.Generator(device="cuda"))
+    zero = [0.0] * 5
+    carry, _ = step(carry, 0.3, process_noise=zero)   # eager, capture
+    torch.cuda.synchronize()
+    ilqr.kernel_team_runs(reset=True)
+    for _ in range(5):
+        carry, u = step(carry, 0.3, process_noise=zero)
+    float(u)
+    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 0, 16: 0, 32: 5}
+    ilqr.ilqr_cuda(riccati.kernel_cfg(cfg, 10), cfg.params,
+                   *_ilqr_cold(4096, 10, 3))
+    assert ilqr.kernel_team_runs() == {4: 0, 8: 1, 16: 0, 32: 0}
+    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 1, 16: 0, 32: 0}
+    assert ilqr.kernel_team_runs() == dict.fromkeys(ilqr.TEAMS, 0)
+
+
+@pytest.mark.gpu
+def test_torch_ilqr_builds_without_spills_on_gpu():
+    """ptxas on K5's instantiations: float32 G = 16 and 32, which hold the
+    rollouts on quads, spill nothing; G = 8 keeps 255 registers and no
+    spill."""
+    _need_card()
+    rows, entry = {}, None
+    for line in build.load("ilqr").log.splitlines():
+        m = re.search(r"Compiling entry function '\S*ilqr_kernelI([fd])Li"
+                      r"(\d+)E", line)
+        if m:
+            entry = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            rows[entry] = {"spills": int(m.group(1)) + int(m.group(2))}
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows[entry]["registers"] = int(m.group(1))
+            entry = None
+    assert rows[("f", 16)]["spills"] == 0 and rows[("f", 32)]["spills"] == 0
+    assert rows[("f", 8)] == {"spills": 0, "registers": 255}
 
 
 @pytest.mark.gpu

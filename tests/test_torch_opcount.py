@@ -200,6 +200,30 @@ def test_torch_opcount_ilqr_pinned_to_the_one_thread_body(stroke):
                for k, n in counts["by_phase"].items() if k != rk4)
 
 
+def test_torch_opcount_ilqr_function_count_whatever_the_team():
+    """The function's count is the one-lane body's at every team size; what
+    the kernel runs at G = 32 differs only in the rollouts (the initial one
+    and the forward sweep), which its quads run on K4's four-lane rhs."""
+    hk.lib()
+    cfg = bench.PRESETS["fast_5x1"](horizon=5, variant="smooth")
+    B = 4
+    x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float32).repeat(B, 1)
+    ref = torch.linspace(-0.5, 0.6, B)
+    v, lam = torch.zeros(B, 5), torch.zeros(B, 5, 2)
+    runs = {G: opcount.ilqr_ops(riccati.kernel_cfg(cfg, 5), cfg.params, x0,
+                                ref, torch.zeros(B), v, lam, executed=True,
+                                team=G) for G in (8, 32)}
+    (out8, c8), (out32, c32) = runs[8], runs[32]
+    for a, b in zip(out8, out32):
+        assert (a is None and b is None) or torch.equal(a, b)
+    e8, e32 = c8.pop("executed"), c32.pop("executed")
+    assert c8 == c32
+    rollouts = ("initial rollout", "forward sweep")
+    for k, n in e8["by_phase"].items():
+        assert (e32["by_phase"][k] > n) if k in rollouts \
+            else e32["by_phase"][k] == n
+
+
 def _sqp_launch(cfg, B, ref):
     """The first Gauss-Newton iteration of a cold SQP solve from the
     reference state, float64: (kernel configuration, inputs, buffers,

@@ -65,6 +65,21 @@ def ilqr_host(kcfg, params, x0, ref, u_prev, v, lam,
     return out
 
 
+def team_runs_host(reset=False) -> dict[int, int]:
+    """``ops.ilqr.kernel_team_runs`` for K5's body on the CPU: the host
+    library's count of its launches by team size."""
+    out = (ctypes.c_ulonglong * len(ilqr.TEAMS))()
+    rc = _fn("fct_ilqr_team_runs", (ctypes.POINTER(ctypes.c_ulonglong),
+                                    ctypes.c_int))(out, int(reset))
+    assert rc == 0
+    return dict(zip(ilqr.TEAMS, out))
+
+
+# The SMs of the card whose team rule the routed dispatch follows (an
+# H100's).
+ROUTED_SMS = 132
+
+
 def sweeps_host(reset=False) -> list[int]:
     """``ops.ilqr.kernel_sweeps`` for K5's body on the CPU: the host
     library's count of the iterations it computed, per AL round."""
@@ -115,7 +130,10 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
     wrappers' launches go to the host library (B1's to its plain version).
     Returns the launch counts of K4 and K5, which the patched wrappers keep,
     and with ``sqp_counts`` those of the SQP's build, B1 and the search.
-    K5's sweep counter (``ilqr.kernel_sweeps``) reads the host library's."""
+    K5 runs at the team size ``ilqr.team_size`` picks on a card of
+    :data:`ROUTED_SMS` SMs; its sweep and team counters
+    (``ilqr.kernel_sweeps``, ``ilqr.kernel_team_runs``) read the host
+    library's."""
     lib()
     counts = {"plant": 0, "ilqr": 0}
     every = dict(counts, sqp_build=0, chol_solve=0, sqp_search=0)
@@ -130,9 +148,12 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
         counts["plant"] += 1
         return plant_host(*a)
 
-    def ilqr_cuda(*a):
+    def ilqr_cuda(*a, team=None):
         counts["ilqr"] += 1
-        return ilqr_host(*a)
+        if team is None:
+            v = a[5]
+            team = ilqr.team_size(*v.shape, v.dtype, ROUTED_SMS)
+        return ilqr_host(*a, team=team)
 
     def counted(name, fn):
         def run(*a, **kw):
@@ -144,6 +165,7 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
     monkeypatch.setattr(plant, "plant_step_cuda", plant_cuda)
     monkeypatch.setattr(ilqr, "ilqr_cuda", ilqr_cuda)
     monkeypatch.setattr(ilqr, "kernel_sweeps", sweeps_host)
+    monkeypatch.setattr(ilqr, "kernel_team_runs", team_runs_host)
     monkeypatch.setattr(sqp, "sqp_build_cuda",
                         counted("sqp_build", sqp_build_host))
     monkeypatch.setattr(sqp, "sqp_search_cuda",
