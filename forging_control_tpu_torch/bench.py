@@ -45,10 +45,7 @@ import torch
 
 from .device import resolve_device
 from .loop.closed_loop import LoopConfig, MPCController, run_batch
-from .ops.ilqr import ilqr_cuda
-from .ops.plant import plant_step_cuda
-from .ops.smallchol import chol_solve_cuda
-from .ops.sqp import sqp_build_cuda, sqp_search_cuda
+from .ops import build
 from .physics.press import X0_REFERENCE
 from .refgen import streams
 from .solver.sqp import MPCConfig
@@ -165,13 +162,14 @@ def far_share(a, b, tol) -> float:
 # The hand-written kernels of each backend's path on a card.
 KERNELS = {"sqp": ("sqp_build", "chol_solve", "sqp_search", "plant"),
            "ilqr": ("ilqr", "plant")}
-_WRAPPERS = {"chol_solve": chol_solve_cuda, "ilqr": ilqr_cuda,
-             "plant": plant_step_cuda, "sqp_build": sqp_build_cuda,
-             "sqp_search": sqp_search_cuda}
+# The record's name of each of those kernels, and its name in
+# ``build.LAUNCHES``.
+_WRAPPERS = {"chol_solve": "smallchol", "ilqr": "ilqr", "plant": "plant",
+             "sqp_build": "sqp_build", "sqp_search": "sqp_search"}
 
 
 def _launches() -> dict:
-    return {k: f.launches for k, f in _WRAPPERS.items()}
+    return {k: build.LAUNCHES[name] for k, name in _WRAPPERS.items()}
 
 
 def _since(before: dict) -> dict:

@@ -111,7 +111,7 @@ bool ilqr_takes(const fct::IlqrCfg* c, int B, int G) {
          && (long long)fct::ilqr_team_fields(c->N) * sizeof(T)
                 <= fct::kIlqrSharedBytes
          && (c->nc == 2 || c->nc == 4) && c->substeps >= 1
-         && (G == 4 || G == 8 || G == 16 || G == 32);
+         && (G == 8 || G == 16 || G == 32);
 }
 
 // Scenarios lo..hi-1 by the team of G lanes, K tangents a unit, K4's
@@ -127,10 +127,6 @@ void ilqr_scenarios(const fct::PressParams* P, const fct::IlqrCfg* c,
     std::fill(sm.begin(), sm.end(), T());
     T* s = sm.data();
     switch (G) {
-      case 4:
-        fct::ilqr_team<T, 4, K>(*P, C, *c, io, b, s, TeamSerial<4>(), skip,
-                                sweeps);
-        break;
       case 8:
         fct::ilqr_team<T, 8, K>(*P, C, *c, io, b, s, TeamSerial<8>(), skip,
                                 sweeps);
@@ -147,16 +143,13 @@ void ilqr_scenarios(const fct::PressParams* P, const fct::IlqrCfg* c,
 }
 
 // K5's sweeps per AL round on the CPU, as csrc/ilqr.cu g_sweeps counts
-// them on the card: a launch's sums added once at its end; and its runs by
-// team size (G = 4, 8, 16, 32), as g_team_runs.
+// them on the card: a launch's sums added once at its end.
 unsigned long long g_sweeps[fct::kSweepRounds] = {};
-unsigned long long g_team_runs[4] = {};
 
 template <class T>
 int ilqr(const fct::PressParams* P, const fct::IlqrCfg* c, const T* consts,
          void* const* p, int B, int G, int teams) {
   if (!ilqr_takes<T>(c, B, G) || teams < 1) return 1;
-  g_team_runs[G == 4 ? 0 : G == 8 ? 1 : G == 16 ? 2 : 3] += 1;
   unsigned sweeps[fct::kSweepRounds] = {};
   ilqr_scenarios<T, fct::kIlqrTangents>(P, c, consts, fct::ilqr_io<T>(p), G,
                                         0, B, true, sweeps);
@@ -649,12 +642,5 @@ extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
 extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
   std::copy(g_sweeps, g_sweeps + fct::kSweepRounds, out);
   if (reset) std::fill(g_sweeps, g_sweeps + fct::kSweepRounds, 0ULL);
-  return 0;
-}
-
-// csrc/ilqr.cu's fct_ilqr_team_runs for the host build's launches.
-extern "C" int fct_ilqr_team_runs(unsigned long long* out, int reset) {
-  std::copy(g_team_runs, g_team_runs + 4, out);
-  if (reset) std::fill(g_team_runs, g_team_runs + 4, 0ULL);
   return 0;
 }

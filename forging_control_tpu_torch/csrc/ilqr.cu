@@ -21,7 +21,7 @@
 // gate is shut; ops/opcount.py), in dependent chains of dual-number
 // arithmetic: the card's float32 rate would take 0.064 ms at B = 4,096.
 // One thread per scenario left one warp on an SM and each chain exposed.
-// So a team of G lanes (G = 4, 8, 16, 32, a template parameter; every team
+// So a team of G lanes (G = 8, 16, 32, a template parameter; every team
 // inside one warp) works on a scenario in phases (bodies.cuh): the stages'
 // linearisation units (a stage x a group of K = 4 tangents) and
 // Gauss-Newton blocks spread over the lanes, the backward sweep's 6x6
@@ -67,7 +67,7 @@
 // cudaGetLastError(), or
 // cudaErrorInvalidValue for what they cannot run: N < 1, one scenario's
 // blocks beyond 227 KB, nc other than 2 and 4, substeps < 1, a team size
-// not built (float32: 4, 8, 16, 32; float64: 8), or teams that do not fit
+// not built (float32: 8, 16, 32; float64: 8), or teams that do not fit
 // one warp or the block's shared memory.
 
 #include <cuda_runtime.h>
@@ -80,24 +80,14 @@ constexpr int kWarp = 32;
 constexpr int kSharedBytes = fct::kIlqrSharedBytes;
 // The team size of float64 (ops/ilqr.py TEAM), which is built for it
 // alone, and of float32 where the card holds the batch in one wave at no
-// larger G; float32 is built for every size (team_size picks 8, 16 or 32;
-// 4 is there to be timed), which keeps this source's build near the other
-// sources'.
+// larger G; float32 is built for the sizes team_size picks (8, 16, 32).
 constexpr int kTeam = 8;
 
-// The kernel's own count of its runs on this card: the first thread of the
-// first block adds one at every launch, so that a replayed CUDA graph shows
-// whether the kernel's node ran (fct_ilqr_runs reads and resets it).
-__device__ unsigned long long g_runs = 0;
 // The Gauss-Newton iterations the kernel computed, summed over scenarios,
 // per AL round (bodies.cuh ilqr_team's sweeps; fct_ilqr_sweeps reads and
 // resets them).  A block sums its teams' counts in shared memory, and its
 // first thread adds the sums here once, at the block's end.
 __device__ unsigned long long g_sweeps[fct::kSweepRounds] = {};
-// The runs by team size, G = 4, 8, 16, 32 (log2(G) - 2): the first thread
-// of the first block adds one beside g_runs, so that a replayed graph shows
-// which schedule its node ran (fct_ilqr_team_runs reads and resets them).
-__device__ unsigned long long g_team_runs[4] = {};
 
 // Blocks of at most one warp, each holding `teams` teams of G lanes.
 template <class T, int G>
@@ -108,10 +98,6 @@ ilqr_kernel(const __grid_constant__ fct::PressParams P,
             const __grid_constant__ fct::PlantConsts<T> C) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned sweeps[fct::kSweepRounds];
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    atomicAdd(&g_runs, 1ULL);
-    atomicAdd(&g_team_runs[G == 4 ? 0 : G == 8 ? 1 : G == 16 ? 2 : 3], 1ULL);
-  }
   for (int r = threadIdx.x; r < fct::kSweepRounds; r += blockDim.x)
     sweeps[r] = 0;
   __syncthreads();
@@ -167,7 +153,6 @@ int launch(const fct::PressParams* P, const fct::IlqrCfg* c, const T* k,
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     switch (G) {
-      case 4: return launch_team<T, 4>(P, c, k, p, B, teams, s);
       case 8: return launch_team<T, 8>(P, c, k, p, B, teams, s);
       case 16: return launch_team<T, 16>(P, c, k, p, B, teams, s);
       case 32: return launch_team<T, 32>(P, c, k, p, B, teams, s);
@@ -193,36 +178,14 @@ extern "C" int fct_ilqr_f64(const fct::PressParams* P, const fct::IlqrCfg* c,
   return launch<double>(P, c, consts, ptrs, B, G, teams, stream);
 }
 
-namespace {
-
-// A __device__ counter (words of unsigned long long) into out; with reset,
-// it starts again from 0.  Synchronises the device.
-template <class C>
-int read_counter(const C& counter, unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, counter, sizeof(C));
+// The sweeps counted since the library was loaded or last reset, per AL
+// round, into out[0..kSweepRounds); with reset, the count starts again from
+// 0.  Synchronises the device.
+extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_sweeps, sizeof(g_sweeps));
   if (e == cudaSuccess && reset) {
-    const C zero{};
-    e = cudaMemcpyToSymbol(counter, &zero, sizeof(C));
+    const decltype(g_sweeps) zero{};
+    e = cudaMemcpyToSymbol(g_sweeps, &zero, sizeof(zero));
   }
   return static_cast<int>(e);
-}
-
-}  // namespace
-
-// The runs counted since the library was loaded or last reset, into *out;
-// with reset, the count starts again from 0.  Synchronises the device.
-extern "C" int fct_ilqr_runs(unsigned long long* out, int reset) {
-  return read_counter(g_runs, out, reset);
-}
-
-// The sweeps counted since the library was loaded or last reset, per AL
-// round, into out[0..kSweepRounds); as fct_ilqr_runs.
-extern "C" int fct_ilqr_sweeps(unsigned long long* out, int reset) {
-  return read_counter(g_sweeps, out, reset);
-}
-
-// The runs counted by team size (G = 4, 8, 16, 32) into out[0..4); as
-// fct_ilqr_runs.
-extern "C" int fct_ilqr_team_runs(unsigned long long* out, int reset) {
-  return read_counter(g_team_runs, out, reset);
 }

@@ -47,11 +47,6 @@ namespace {
 constexpr int kThreads = 32;
 constexpr int kTeam = 4;   // lanes a scenario of the team body
 
-// The kernel's own count of its runs on this card: the first thread of the
-// first block adds one at every launch, so that a replayed CUDA graph shows
-// whether the kernel's node ran (fct_plant_runs reads and resets it).
-__device__ unsigned long long g_runs = 0;
-
 template <class T>
 __global__ void __launch_bounds__(kThreads)
 plant_kernel(fct::PressParams P, fct::PlantCfg c, const T* __restrict__ xt,
@@ -60,7 +55,6 @@ plant_kernel(fct::PressParams P, fct::PlantCfg c, const T* __restrict__ xt,
              T* __restrict__ xn, T* __restrict__ xmn, T* __restrict__ Fd,
              int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b == 0) atomicAdd(&g_runs, 1ULL);
   if (b >= B) return;
   fct::plant_body<T>(P, c, xt + 5 * b, xm + 5 * b, u[b],
                      w ? w + 5 * b : nullptr, v ? v + 5 * b : nullptr,
@@ -82,7 +76,6 @@ plant_team_kernel(const __grid_constant__ fct::PlantConsts<T> C,
                   const T* __restrict__ v, T* __restrict__ xn,
                   T* __restrict__ xmn, T* __restrict__ Fd, int B) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t == 0) atomicAdd(&g_runs, 1ULL);
   const bool store = t / kTeam < B;
   const int b = store ? t / kTeam : B - 1;
   fct::plant_team<T, V>(C, c, xt + 5 * b, xm + 5 * b, u[b],
@@ -165,15 +158,4 @@ extern "C" int fct_plant_sqrt_f32(const float* x, float* out, long long n,
   sqrt_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       x, out, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The runs counted since the library was loaded or last reset, into *out;
-// with reset, the count starts again from 0.  Synchronises the device.
-extern "C" int fct_plant_runs(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_runs, sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero = 0;
-    e = cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
 }

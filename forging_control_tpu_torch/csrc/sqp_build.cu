@@ -43,9 +43,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kSharedBytes = 48 * 1024;
 
-// The kernel's own count of its runs on this card (fct_sqp_build_runs).
-__device__ unsigned long long g_runs = 0;
-
 template <class T>
 __global__ void __launch_bounds__(kWarp)
 sqp_build_kernel(const __grid_constant__ fct::PressParams P,
@@ -53,7 +50,6 @@ sqp_build_kernel(const __grid_constant__ fct::PressParams P,
                  const __grid_constant__ fct::SqpIO<T> io, int B, int G,
                  int teams, int al, int row) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs, 1ULL);
   const int team = threadIdx.x / G;
   const int b = blockIdx.x * teams + team;
   if (b >= B) return;   // the whole team
@@ -95,15 +91,4 @@ extern "C" int fct_sqp_build_f64(const fct::PressParams* P,
                                  int B, int G, int teams, int al, int row,
                                  void* stream) {
   return launch<double>(P, c, ptrs, B, G, teams, al, row, stream);
-}
-
-// The runs counted since the library was loaded or last reset, into *out;
-// with reset, the count starts again from 0.  Synchronises the device.
-extern "C" int fct_sqp_build_runs(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_runs, sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero = 0;
-    e = cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
 }

@@ -36,9 +36,6 @@ namespace {
 
 constexpr int kWarp = 32;
 
-// The kernel's own count of its runs on this card (fct_sqp_search_runs).
-__device__ unsigned long long g_runs = 0;
-
 template <class T>
 __global__ void __launch_bounds__(kWarp)
 sqp_search_kernel(const __grid_constant__ fct::PressParams P,
@@ -46,7 +43,6 @@ sqp_search_kernel(const __grid_constant__ fct::PressParams P,
                   const __grid_constant__ fct::SqpIO<T> io, int B, int G,
                   int teams, int al, int row, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&g_runs, 1ULL);
   const int team = threadIdx.x / G;
   const int b = blockIdx.x * teams + team;
   if (b >= B) return;   // the whole team
@@ -89,15 +85,4 @@ extern "C" int fct_sqp_search_f64(const fct::PressParams* P,
                                   int B, int G, int teams, int al, int row,
                                   int flags, void* stream) {
   return launch<double>(P, c, ptrs, B, G, teams, al, row, flags, stream);
-}
-
-// The runs counted since the library was loaded or last reset, into *out;
-// with reset, the count starts again from 0.  Synchronises the device.
-extern "C" int fct_sqp_search_runs(unsigned long long* out, int reset) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_runs, sizeof(*out));
-  if (e == cudaSuccess && reset) {
-    const unsigned long long zero = 0;
-    e = cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
-  }
-  return static_cast<int>(e);
 }

@@ -31,10 +31,10 @@ call nothing that synchronises (``dual.constants`` and fill ops make its
 constants); a capture that meets such an op raises, and nothing falls back
 to the eager loop.
 
-Launch counts: the kernel wrappers count their launches as the body
-dispatches them.  A capture's counts are taken back, and each replay adds
-them again, so a counter reads the same after a captured run as after an
-eager one.
+Launch counts: ``ops.build.launch`` counts the kernels' launches in
+``ops.build.LAUNCHES`` as the body dispatches them.  A capture's counts are
+taken back, and each replay adds them again, so the counter reads the same
+after a captured run as after an eager one.
 
 A :class:`Step` is the same machinery for one training step, the
 counterpart of the JAX package's jitted training programs: forward,
@@ -49,6 +49,7 @@ import gc
 
 import torch
 
+from ..ops import build
 from ..utils.profiling import annotate
 
 # One side stream per device for every capture (a CUDA graph is captured
@@ -91,31 +92,6 @@ def copy_into(dst, src) -> None:
         d.copy_(s)
 
 
-def _counted():
-    """The kernel wrappers whose ``launches`` the runs are held to."""
-    from ..ops import ilqr, lstm, plant, probe, smallchol, sqp
-    return (smallchol.chol_solve_cuda, lstm.lstm_forward_cuda,
-            probe.probe_cuda, plant.plant_step_cuda, ilqr.ilqr_cuda,
-            sqp.sqp_build_cuda, sqp.sqp_search_cuda)
-
-
-def _counts() -> dict:
-    from ..ops import lstm
-    out = {f: f.launches for f in _counted()}
-    out.update({("lstm", k): v for k, v in
-                lstm.lstm_forward_cuda.variant_launches.items()})
-    return out
-
-
-def _add_counts(delta: dict) -> None:
-    from ..ops import lstm
-    for key, n in delta.items():
-        if isinstance(key, tuple):
-            lstm.lstm_forward_cuda.variant_launches[key[1]] += n
-        else:
-            key.launches += n
-
-
 def records(tree) -> bool:
     """Whether autograd records through a tree of tensors."""
     return torch.is_grad_enabled() and any(a.requires_grad
@@ -139,8 +115,8 @@ class Period:
     the kept spans ``graph.capture`` and ``graph.instantiate``
     (``utils.profiling.spans``), the device
     memory reserved while capturing, the graph's private pool
-    (``pool_bytes``), and the kernel launches of one replay by wrapper
-    (``launches``)."""
+    (``pool_bytes``), and the kernel launches of one replay by kernel name
+    (``launches``, as ``ops.build.LAUNCHES`` counts them)."""
 
     def __init__(self, body, state, inputs):
         self.body = body
@@ -163,7 +139,8 @@ class Period:
         if self.graph is None:
             return self._run()
         self.graph.replay()
-        _add_counts(self._delta)
+        for name, n in self._delta.items():
+            build.LAUNCHES[name] += n
         return self.outputs
 
     def capture(self) -> None:
@@ -175,7 +152,7 @@ class Period:
                              f"{self.device}")
         side = _side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        before = _counts()
+        before = build.LAUNCHES.copy()
         graph = torch.cuda.CUDAGraph()
         # A graph that the garbage collector frees during a capture makes
         # a CUDA call that invalidates the capture: collect first, and not
@@ -192,17 +169,14 @@ class Period:
         finally:
             instantiating.__exit__(None, None, None)
             gc.enable()
-        after = _counts()
-        self._delta = {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
-        _add_counts({k: -n for k, n in self._delta.items()})
+        self._delta = dict(build.LAUNCHES - before)
+        build.LAUNCHES.subtract(self._delta)
         self.graph, self.outputs = graph, outputs
         self.stats = {
             "capture_s": capture["end"] - capture["start"],
             "instantiate_s": instantiate["end"] - instantiate["start"],
             "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
-            "launches": {(k[0] + " " + k[1]) if isinstance(k, tuple)
-                         else k.__name__: n for k, n in self._delta.items()}}
+            "launches": dict(self._delta)}
 
 
 def resolve(graph: bool | None, device) -> bool:

@@ -12,10 +12,14 @@ or a failed compile raises.
 per-scenario bodies of kernels K4 and K5 and of the SQP's build and search
 on the CPU, for the tests, and the count of the operations they need
 (``ops.opcount``, for the kernels' bounds).  No path of the port loads it.
+
+:func:`launch` makes every kernel launch of the port and counts it in
+:data:`LAUNCHES`, keyed by the kernel's name.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -61,6 +65,12 @@ class Built:
 
 
 _loaded: dict[str, Built] = {}
+
+# The launches :func:`launch` made (or a CUDA graph's capture holds, once
+# per replay: loop.graph), by kernel name: "ilqr" (K5), "plant" (K4),
+# "plant sqrt" (K4's square-root check), "smallchol" (B1), "sqp_build",
+# "sqp_search", "probe" (B3), "lstm mma" and "lstm simt" (B2's variants).
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def nvcc() -> str:
@@ -213,16 +223,6 @@ def kernel_counter(name: str, counter: str, words: int = 1,
     return list(out)
 
 
-def kernel_runs(name: str, reset: bool = False) -> int:
-    """How often the kernel of ``csrc/<name>.cu`` ran on the current card
-    since its library was loaded (or last reset), as the kernel counts
-    itself (``fct_<name>_runs``: its first thread adds one per launch).
-    Unlike a wrapper's ``launches``, which counts the launches the host
-    made or captured, this shows that a replayed graph's node ran.  With
-    ``reset`` the count starts again from 0.  Synchronises the card."""
-    return kernel_counter(name, "runs", reset=reset)[0]
-
-
 def current_stream_handle(index: int) -> int:
     """The ``cudaStream_t`` of device ``index``'s current stream (the
     capture stream inside ``torch.cuda.graph``), as an int: what
@@ -232,9 +232,10 @@ def current_stream_handle(index: int) -> int:
 
 
 def launch(what: str, fn, device: torch.device, *args) -> None:
-    """``fn(*args, stream)`` with ``device``'s current stream last; enters
-    a device context only when ``device`` is not the current device.
-    Raises if the entry point returns a CUDA error."""
+    """``fn(*args, stream)`` with ``device``'s current stream last, counted
+    in ``LAUNCHES[what]``; enters a device context only when ``device`` is
+    not the current device.  Raises if the entry point returns a CUDA
+    error."""
     index = device.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(device):
@@ -243,3 +244,4 @@ def launch(what: str, fn, device: torch.device, *args) -> None:
         rc = fn(*args, current_stream_handle(index))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[what] += 1

@@ -18,8 +18,8 @@ the kernel where the configuration asks for it.
 launch geometry (the team size from the batch, :func:`team_size`, and the
 teams a block holds), takes the configuration's scalars as kernel arguments
 (so a captured control period makes no tensor from host data and reads
-nothing back), launches on the current stream and counts its launches in
-``ilqr_cuda.launches``.  The horizon is bounded by one scenario's blocks in
+nothing back) and launches on the current stream (``build.launch``, which
+counts it under ``"ilqr"``).  The horizon is bounded by one scenario's blocks in
 a block's shared memory (:func:`max_horizon`): N <= 536 in float32, 267 in
 float64.
 """
@@ -37,11 +37,11 @@ from . import build
 from ..physics.scaling import U_SCALE
 from .plant import VARIANTS, plant_consts_at, press_params_c
 
-# Lanes a scenario (G): the sizes the kernel is built for (float64: TEAM
-# alone), and TEAM, float64's and that of a batch that fills the card (the
-# fastest at N = 10, B = 4,096, and at N = 25 over both strokes, on an H100;
-# PERF.md); team_size picks float32's.
-TEAMS = (4, 8, 16, 32)
+# Lanes a scenario (G): the sizes the kernel is built for, which team_size
+# picks from (float64: TEAM alone), and TEAM, float64's and that of a batch
+# that fills the card (the fastest at N = 10, B = 4,096, and at N = 25 over
+# both strokes, on an H100; PERF.md).
+TEAMS = (8, 16, 32)
 TEAM = 8
 WARP = 32
 # What an SM of the card the kernel is built for (sm_90) holds of it: 64 K
@@ -299,11 +299,7 @@ def ilqr_cuda(kcfg, params, x0, ref, u_prev, v, lam,
     fn = build.entry("ilqr", _SYMBOLS[v.dtype], _ARGTYPES)
     out, _zc, args = prepare(kcfg, params, x0, ref, u_prev, v, lam, team)
     build.launch("ilqr", fn, v.device, *args)
-    ilqr_cuda.launches += 1
     return out
-
-
-ilqr_cuda.launches = 0
 
 
 def kernel_sweeps(reset: bool = False) -> list[int]:
@@ -315,12 +311,3 @@ def kernel_sweeps(reset: bool = False) -> list[int]:
     that took no step (``Diagnostics.iters`` counts those too).  With
     ``reset`` the count starts again from 0.  Synchronises the card."""
     return build.kernel_counter("ilqr", "sweeps", SWEEP_ROUNDS, reset)
-
-
-def kernel_team_runs(reset: bool = False) -> dict[int, int]:
-    """K5's runs on the current card since its library was loaded (or last
-    reset), by team size G (4, 8, 16, 32), as the kernel counts itself: in
-    a replayed graph, which schedule its node ran.  With ``reset`` the
-    count starts again from 0.  Synchronises the card."""
-    return dict(zip(TEAMS, build.kernel_counter("ilqr", "team_runs",
-                                                len(TEAMS), reset)))

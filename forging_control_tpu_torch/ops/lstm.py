@@ -12,9 +12,9 @@ Port of ``forging_control_tpu/ops/lstm_pallas.py``.  Three functions:
   inputs, picks the kernel's variant with :func:`variant` (by shape and
   dtype alone: the tensor-core 3xTF32 ``"mma"`` kernel for float32 at
   H <= 64 when its block fits in shared memory, the general ``"simt"``
-  kernel otherwise), allocates the output, launches on the current stream
-  and counts its launches in ``lstm_forward_cuda.launches`` and, per
-  variant, in ``lstm_forward_cuda.variant_launches``.  Forward only, like
+  kernel otherwise), allocates the output and launches on the current
+  stream (``build.launch``, which counts it under ``"lstm mma"`` or
+  ``"lstm simt"``).  Forward only, like
   ``apply_pallas``: it refuses inputs that require a gradient.
 * :func:`lstm_forward` — dispatch on the input's device: a CPU tensor takes
   the plain version, a CUDA tensor the kernel, anything else raises.
@@ -158,18 +158,12 @@ def lstm_forward_cuda(x: torch.Tensor, w_ih, w_hh, w_out: torch.Tensor,
     fn = build.entry("lstm", _SYMBOLS[kind, x.dtype], _ARGTYPES)
     out = x.new_empty(B, O)
     ptrs = ctypes.c_void_p * L
-    build.launch("lstm", fn, x.device, x.data_ptr(),
+    build.launch("lstm " + kind, fn, x.device, x.data_ptr(),
                  ptrs(*(w.data_ptr() for w in w_ih)),
                  ptrs(*(w.data_ptr() for w in w_hh)), w_out.data_ptr(),
                  None if b_out is None else b_out.data_ptr(), out.data_ptr(),
                  *shape)
-    lstm_forward_cuda.launches += 1
-    lstm_forward_cuda.variant_launches[kind] += 1
     return out
-
-
-lstm_forward_cuda.launches = 0
-lstm_forward_cuda.variant_launches = {"mma": 0, "simt": 0}
 
 
 def lstm_forward(x: torch.Tensor, w_ih, w_hh, w_out: torch.Tensor,

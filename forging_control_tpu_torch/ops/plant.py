@@ -16,9 +16,10 @@ kernel.  Three functions:
   ``csrc/bodies.cuh`` ``plant_team`` on ``csrc/press_dual.cuh``), or, with
   ``team=1``, one thread per scenario through the reference body
   ``plant_body``, which gives the same bits.  It checks its inputs,
-  allocates the outputs, launches on the current stream and counts its
-  launches in ``plant_step_cuda.launches`` (:func:`sqrt_cuda` exposes the
-  team body's square root for the card's check);
+  allocates the outputs and launches on the current stream
+  (``build.launch``, which counts it under ``"plant"``; :func:`sqrt_cuda`
+  exposes the team body's square root for the card's check, counted under
+  ``"plant sqrt"``);
 * :func:`plant_step` — dispatch: the kernel on a card, the plain version on
   the CPU and wherever autograd records through the step (plant-in-loop
   training backpropagates through the plant; the kernel has no backward).
@@ -241,11 +242,7 @@ def plant_step_cuda(cfg, x_true, x_meas, u, w, v, team: int = TEAM):
     fn = build.entry("plant", _SYMBOLS[x_true.dtype], _ARGTYPES)
     outs, args = prepare(cfg, x_true, x_meas, u, w, v, team)
     build.launch("plant", fn, x_true.device, *args)
-    plant_step_cuda.launches += 1
     return outs
-
-
-plant_step_cuda.launches = 0
 
 
 def sqrt_cuda(x):
@@ -259,7 +256,7 @@ def sqrt_cuda(x):
     fn = build.entry("plant", "fct_plant_sqrt_f32",
                      (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_void_p))
-    build.launch("plant", fn, x.device, x.data_ptr(), out.data_ptr(),
+    build.launch("plant sqrt", fn, x.device, x.data_ptr(), out.data_ptr(),
                  x.numel())
     return out
 

@@ -3,8 +3,8 @@
 Port of ``scripts/pallas_probe.py``: one (8, 128) float32 ``x * 2 + 1``
 kernel (``csrc/probe.cu``) that shows the CUDA toolchain builds, loads and
 launches on the card.  :func:`probe_torch` is its plain version,
-:func:`probe_cuda` its wrapper (launches counted in
-``probe_cuda.launches``), and :func:`main` builds and runs it once and
+:func:`probe_cuda` its wrapper (launches counted under ``"probe"`` by
+``build.launch``), and :func:`main` builds and runs it once and
 prints ONE JSON line with the outcome:
 
     python -m forging_control_tpu_torch.ops.probe [--host-us]
@@ -48,11 +48,7 @@ def probe_cuda(x: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     build.launch("probe", fn, x.device, x.data_ptr(), y.data_ptr(),
                  x.numel())
-    probe_cuda.launches += 1
     return y
-
-
-probe_cuda.launches = 0
 
 
 def host_breakdown(x: torch.Tensor, n: int = 200, rounds: int = 5) -> dict:

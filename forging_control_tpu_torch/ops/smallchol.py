@@ -9,8 +9,8 @@ Port of ``forging_control_tpu/ops/smallchol.py``.  Three functions:
   there).
 * :func:`chol_solve_cuda` — the wrapper of the hand-written CUDA kernel
   ``csrc/smallchol.cu`` (the counterpart of ``chol_solve_pallas``).  It
-  checks its inputs, allocates the output, launches on the current stream
-  and counts its launches in ``chol_solve_cuda.launches``.
+  checks its inputs, allocates the output and launches on the current
+  stream (``build.launch``, which counts it under ``"smallchol"``).
 * :func:`chol_solve` — dispatch on the tensor's device: a CPU tensor takes
   the plain version, a CUDA tensor the kernel, anything else raises.
 """
@@ -99,11 +99,7 @@ def chol_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x = torch.empty_like(g)
     build.launch("smallchol", fn, H.device, H.data_ptr(), g.data_ptr(),
                  x.data_ptr(), B, N)
-    chol_solve_cuda.launches += 1
     return x
-
-
-chol_solve_cuda.launches = 0
 
 
 def chol_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,8 @@ The plain version is the tensor code of ``solver/sqp.py`` itself
 they see (the build: G = N lanes a scenario, one input direction each; the
 search: a lane per candidate), take the configuration's scalars as kernel
 arguments (so a captured control period makes no tensor from host data and
-reads nothing back), launch on the current stream and count their launches
-in ``.launches``.  N is bounded by B1's 25.
+reads nothing back) and launch on the current stream (``build.launch``,
+which counts them under their sources' names).  N is bounded by B1's 25.
 """
 
 from __future__ import annotations
@@ -283,10 +283,6 @@ def sqp_build_cuda(kcfg, params, x0, ref, u_prev, v_in, lam_in,
     ptrs = pointers(bufs, x0, ref, u_prev, v_in, lam_in)
     build.launch("sqp_build", fn, v_in.device,
                  *build_args(kcfg, params, ptrs, v_in.shape[0], step, team))
-    sqp_build_cuda.launches += 1
-
-
-sqp_build_cuda.launches = 0
 
 
 def sqp_search_cuda(kcfg, params, x0, ref, u_prev, v_in, lam_in, x,
@@ -309,7 +305,3 @@ def sqp_search_cuda(kcfg, params, x0, ref, u_prev, v_in, lam_in, x,
     ptrs = pointers(bufs, x0, ref, u_prev, v_in, lam_in, x)
     build.launch("sqp_search", fn, v_in.device,
                  *search_args(kcfg, params, ptrs, v_in.shape[0], step, team))
-    sqp_search_cuda.launches += 1
-
-
-sqp_search_cuda.launches = 0

@@ -181,7 +181,8 @@ def solver_phase_breakdown(cfg, batch: int = 256, reps: int = 3, dtype=None,
     """
     from .. import dual as ad
     from ..device import resolve_device
-    from ..ops.smallchol import chol_solve, chol_solve_cuda
+    from ..ops import build
+    from ..ops.smallchol import chol_solve
     from ..physics import press
     from ..solver import sqp
 
@@ -233,7 +234,7 @@ def solver_phase_breakdown(cfg, batch: int = 256, reps: int = 3, dtype=None,
            "phases": {}}
     for name, fn in phases.items():
         with torch.no_grad():
-            launches0 = chol_solve_cuda.launches
+            launches0 = build.LAUNCHES["smallchol"]
             counter = _op_counter()
             with counter:
                 fn()                                    # warm-up
@@ -242,7 +243,7 @@ def solver_phase_breakdown(cfg, batch: int = 256, reps: int = 3, dtype=None,
             "t_wall_s": best,
             "t_wall_per_solve_us": best / batch * 1e6,
             "ops": counter.ops,
-            "chol_solve_launches": chol_solve_cuda.launches - launches0,
+            "chol_solve_launches": build.LAUNCHES["smallchol"] - launches0,
         }
     total = out["phases"]["total"]["t_wall_s"]
     for rec in out["phases"].values():

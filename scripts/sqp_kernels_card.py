@@ -9,7 +9,7 @@ the kernels alone at B = 4,096, N = 10 (``fast_5x1``, float32): each
 launch's device time from CUDA graphs of k launches replayed between two
 CUDA events (as ``chip_smoke.py``'s ``graph_ms``), for each team size, and
 a whole solve; and counts one captured closed-loop period's launches (the
-wrappers' counters, the kernels' own run counts and a traced replay).
+launch count ``ops.build.LAUNCHES`` and a traced replay).
 Imports neither jax nor the JAX package.
 
     python3 scripts/sqp_kernels_card.py [--out FILE]
@@ -258,9 +258,8 @@ def phase_time(B=4096, N=10):
 
 def phase_period(T=4, B=4096):
     """The benchmark's closed loop (fast_5x1, N = 10, float32, B = 4,096,
-    T periods): a first run captures, a second replays; one replayed
-    period's launches by the wrappers and the kernels' own counts, and a
-    traced replay's device kernels."""
+    T periods): a first run captures, a second replays; the replayed run's
+    launches by the launch count, and a traced replay's device kernels."""
     from torch.profiler import ProfilerActivity, profile
     cfg = sqp.MPCConfig.fast(horizon=10, gn_iters=5, variant="smooth")
     ctrl = cl.MPCController(cfg)
@@ -276,19 +275,12 @@ def phase_period(T=4, B=4096):
     run()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    for name in sqp_ops.SOURCES:
-        build.kernel_runs(name, reset=True)
-    before = (sqp_ops.sqp_build_cuda.launches,
-              sqp_ops.sqp_search_cuda.launches,
-              smallchol.chol_solve_cuda.launches)
+    before = build.LAUNCHES.copy()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     second = time.perf_counter() - t0
-    runs = {n: build.kernel_runs(n, reset=True) for n in sqp_ops.SOURCES}
-    after = (sqp_ops.sqp_build_cuda.launches,
-             sqp_ops.sqp_search_cuda.launches,
-             smallchol.chol_solve_cuda.launches)
+    launches = build.LAUNCHES - before
     period = cl.cached_period(loop, ctrl, B, torch.float32, "cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
@@ -309,10 +301,10 @@ def phase_period(T=4, B=4096):
           "replayed_run_s": second, "s_per_period": second / T,
           "solves_per_s_replayed": B * T / second,
           "stats": {k: v for k, v in period.stats.items()},
-          "launches_per_run": {"sqp_build": after[0] - before[0],
-                               "sqp_search": after[1] - before[1],
-                               "chol_solve": after[2] - before[2]},
-          "kernel_runs": runs, "traced_kernels": len(names),
+          "launches_per_run": {"sqp_build": launches["sqp_build"],
+                               "sqp_search": launches["sqp_search"],
+                               "chol_solve": launches["smallchol"]},
+          "traced_kernels": len(names),
           "traced_kernels_per_period": len(names) / T,
           "traced_ms_by_kernel": by})
 

@@ -87,7 +87,7 @@ def test_torch_k5_host_at_n25_matches_benchmark_reference(monkeypatch, seed):
     _, plain = run()
     counts = hk.route_kernels_to_host(monkeypatch)
     _, kern = run()
-    assert counts == {"plant": T, "ilqr": T}
+    assert dict(counts) == {"plant": T, "ilqr": T}
     u_ref, x_ref = ref_loop.closed_loop(cfg, x0, refs, noise)
     for got in (kern, plain):
         assert torch.isfinite(got.u).all() and torch.isfinite(got.x).all()

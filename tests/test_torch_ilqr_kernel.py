@@ -237,28 +237,6 @@ def test_torch_ilqr_team_size_rule(N):
     assert ilqr.team_size(9, N, f32, 1) == 16
 
 
-def test_torch_ilqr_host_team_runs_by_chosen_team(monkeypatch):
-    """Routed to the host build, K5 runs at the team the rule picks for
-    each launch (an H100's 132 SMs: float32 B = 5 takes 32, B = 1,100
-    takes 16; float64 takes 8), and the host counter adds one a launch
-    under that G."""
-    counts = hk.route_kernels_to_host(monkeypatch)
-    ilqr.kernel_team_runs(reset=True)
-    for B, dtype in ((5, torch.float32), (1100, torch.float32),
-                     (5, torch.float64), (5, torch.float32)):
-        cfg = riccati.MPCConfig(horizon=2, variant="smooth", gn_iters=1,
-                                al_iters=1)
-        x0 = torch.tensor(press.X0_REFERENCE, dtype=dtype).repeat(B, 1)
-        ref = torch.linspace(-0.5, 0.5, B, dtype=dtype)
-        st = riccati.ILQRState(torch.zeros(B, 2, dtype=dtype),
-                               torch.zeros(B, 2, 2, dtype=dtype))
-        riccati.solve_batch(cfg, x0, ref, torch.zeros(B, dtype=dtype), st)
-    assert counts["ilqr"] == 4
-    assert ilqr.kernel_team_runs() == {4: 0, 8: 1, 16: 1, 32: 2}
-    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 1, 16: 1, 32: 2}
-    assert ilqr.kernel_team_runs() == dict.fromkeys(ilqr.TEAMS, 0)
-
-
 def test_torch_ilqr_shared_layout_and_horizon_limit():
     """The wrapper's size of a scenario's blocks is the body's
     (IlqrLayout, and the candidates' states in device memory); the horizon
@@ -366,7 +344,7 @@ def test_torch_closed_loop_through_both_kernels_matches_jax(monkeypatch):
     x_final, telem = cl.run_batch(loop_cfg, ctrl, x0,
                                   refs[:, LT // 2:LT // 2 + LT],
                                   process_noise=want.w, device="cpu")
-    assert counts == {"plant": LT, "ilqr": LT}
+    assert dict(counts) == {"plant": LT, "ilqr": LT}
     got = interop.telemetry_to_numpy(telem)
     np.testing.assert_allclose(got["u"], want.u, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(got["x"], want.x, rtol=1e-9, atol=1e-9)
@@ -389,10 +367,10 @@ def test_torch_ilqr_dispatch_rules(monkeypatch):
     x0, ref, up = hk.float64(XS, REFS, UPS)
     st = riccati.ILQRState(torch.zeros(len(XS), 4, dtype=torch.float64),
                            torch.zeros(len(XS), 4, 2, dtype=torch.float64))
-    launches = ilqr.ilqr_cuda.launches
+    launches = build.LAUNCHES.copy()
     a = riccati.solve_batch(cfg, x0, ref, up, st)
     b = riccati.solve_batch(cfg, x0, ref, up, st, solver="plain")
-    assert ilqr.ilqr_cuda.launches == launches
+    assert build.LAUNCHES == launches
     assert torch.equal(a[0], b[0]) and torch.equal(a[1].v, b[1].v)
     with pytest.raises(ValueError, match="unknown solver"):
         riccati.solve_batch(cfg, x0, ref, up, st, solver="pallas")
@@ -439,6 +417,8 @@ def test_torch_ilqr_wrapper_refuses_what_the_kernel_does_not_take():
                    torch.zeros(len(XS), over, 2, dtype=torch.float64), "cpu")
     with pytest.raises(ValueError, match="team must be one of"):
         ilqr.check(kcfg, x0, ref, up, v, lam, "cpu", team=12)
+    with pytest.raises(ValueError, match="team must be one of"):
+        ilqr.check(kcfg, x0, ref, up, v, lam, "cpu", team=4)
     with pytest.raises(ValueError, match="lam has shape"):
         ilqr.check(riccati.kernel_cfg(dataclasses.replace(cfg, p_max=32e6),
                                       5), x0, ref, up, v, lam, "cpu")

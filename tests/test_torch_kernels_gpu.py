@@ -21,7 +21,6 @@ from forging_control_tpu_torch.loop import closed_loop as cl
 from forging_control_tpu_torch.nn import lstm
 from forging_control_tpu_torch.ops import build, ilqr, plant, probe, smallchol
 from forging_control_tpu_torch.ops import lstm as lstm_ops
-from forging_control_tpu_torch.ops import sqp as sqp_ops
 from forging_control_tpu_torch.physics import press
 from forging_control_tpu_torch.solver import riccati, sqp
 
@@ -113,12 +112,9 @@ def test_torch_lstm_kernel_matches_plain_on_gpu():
             for B in (1, 37, 300, 2053):
                 x = torch.randn(B, T, 5, generator=gen,
                                 dtype=torch.float64).to("cuda", dtype)
-                launches = lstm_ops.lstm_forward_cuda.launches
-                by_kind = lstm_ops.lstm_forward_cuda.variant_launches[kind]
+                launches = build.LAUNCHES.copy()
                 got = model.infer(x)
-                assert lstm_ops.lstm_forward_cuda.launches == launches + 1
-                assert (lstm_ops.lstm_forward_cuda.variant_launches[kind]
-                        == by_kind + 1)
+                assert dict(build.LAUNCHES - launches) == {"lstm " + kind: 1}
                 want = model(x).detach()
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
@@ -153,9 +149,9 @@ def test_torch_probe_kernel_matches_plain_on_gpu():
     _need_card()
     x = torch.arange(8 * 128, dtype=torch.float32,
                      device="cuda").reshape(8, 128)
-    launches = probe.probe_cuda.launches
+    launches = build.LAUNCHES["probe"]
     assert torch.equal(probe.probe_cuda(x), probe.probe_torch(x))
-    assert probe.probe_cuda.launches == launches + 1
+    assert build.LAUNCHES["probe"] == launches + 1
     assert probe.main() == 0
 
 
@@ -237,10 +233,13 @@ def test_torch_mpc_loss_on_gpu_matches_cpu():
         grads = torch.autograd.grad(loss, [p["w_in"], p["w_out"]])
         return [t.detach().cpu() for t in (loss, out.prediction, *grads)]
 
-    before = lstm_ops.lstm_forward_cuda.launches
+    def b2_launches():
+        return build.LAUNCHES["lstm mma"] + build.LAUNCHES["lstm simt"]
+
+    before = b2_launches()
     for a, b in zip(run("cuda"), run("cpu")):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-13)
-    assert lstm_ops.lstm_forward_cuda.launches == before
+    assert b2_launches() == before
 
 
 def _plant_inputs(rng, B, dtype, clip):
@@ -425,7 +424,8 @@ def test_torch_ilqr_kernel_matches_plain_on_gpu():
                        v[:, :5].contiguous(), lam[:, :5].contiguous())
     with pytest.raises(ValueError, match="float64 is built for team"):
         ilqr.ilqr_cuda(kcfg5, cfg.params, x0, ref, ref,
-                       v[:, :5].contiguous(), lam[:, :5].contiguous(), team=4)
+                       v[:, :5].contiguous(), lam[:, :5].contiguous(),
+                       team=16)
     with pytest.raises(RuntimeError, match="backward"):
         ilqr.ilqr_cuda(kcfg5, cfg.params, x0.requires_grad_(), ref, ref,
                        v[:, :5].contiguous(), lam[:, :5].contiguous())
@@ -495,10 +495,12 @@ def test_torch_ilqr_team_rule_same_bits_on_gpu():
 
 @pytest.mark.gpu
 def test_torch_ilqr_team_runs_on_gpu():
-    """K5's runs by team size (``ilqr.kernel_team_runs``) through replayed
-    ``make_stepper`` periods (B = 1: G = 32, one run a period) and a batch
-    the rule gives G = 8 (B = 4,096 at N = 10); read and reset."""
+    """K5's runs by team size, as the device trace names them
+    (``ilqr_kernel<float, G>``), through replayed ``make_stepper`` periods
+    (B = 1: G = 32, one run a period) and a batch the rule gives G = 8
+    (B = 4,096 at N = 10); the launch count adds one a replay."""
     _need_card()
+    from torch.profiler import ProfilerActivity, profile
     cfg = bench.PRESETS["fast_5x1"](horizon=10, variant="smooth")
     ctrl = cl.MPCController(cfg, backend="ilqr")
     step, carry = cl.make_stepper(cl.LoopConfig(variant="smooth"), ctrl,
@@ -506,16 +508,19 @@ def test_torch_ilqr_team_runs_on_gpu():
     zero = [0.0] * 5
     carry, _ = step(carry, 0.3, process_noise=zero)   # eager, capture
     torch.cuda.synchronize()
-    ilqr.kernel_team_runs(reset=True)
-    for _ in range(5):
-        carry, u = step(carry, 0.3, process_noise=zero)
-    float(u)
-    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 0, 16: 0, 32: 5}
-    ilqr.ilqr_cuda(riccati.kernel_cfg(cfg, 10), cfg.params,
-                   *_ilqr_cold(4096, 10, 3))
-    assert ilqr.kernel_team_runs() == {4: 0, 8: 1, 16: 0, 32: 0}
-    assert ilqr.kernel_team_runs(reset=True) == {4: 0, 8: 1, 16: 0, 32: 0}
-    assert ilqr.kernel_team_runs() == dict.fromkeys(ilqr.TEAMS, 0)
+    launches = build.LAUNCHES["ilqr"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            carry, u = step(carry, 0.3, process_noise=zero)
+        float(u)
+        ilqr.ilqr_cuda(riccati.kernel_cfg(cfg, 10), cfg.params,
+                       *_ilqr_cold(4096, 10, 3))
+        torch.cuda.synchronize()
+    assert build.LAUNCHES["ilqr"] == launches + 6
+    teams = [int(m.group(1)) for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and (m := re.search(r"ilqr_kernel<float, (\d+)>", e.name()))]
+    assert teams == [32] * 5 + [8]
 
 
 @pytest.mark.gpu
@@ -588,9 +593,10 @@ def test_torch_sqp_kernels_match_plain_on_gpu():
 def test_torch_sqp_captured_period_launches_on_gpu():
     """One captured closed-loop period of the SQP (fast_5x1, N = 10,
     float32, B = 256) holds a build, B1 and a search a Gauss-Newton
-    iteration and K4 once, by the wrappers' counts and by the kernels' own
-    runs on the card; a traced replay runs some tens of device kernels, no
-    dispatched rollout (the tensor code's period is some 527,000)."""
+    iteration and K4 once, by the launch count; a traced run of two
+    periods runs each build and search (by the trace's kernel names) and
+    some tens of device kernels, no dispatched rollout (the tensor code's
+    period is some 527,000)."""
     _need_card()
     from torch.profiler import ProfilerActivity, profile
     cfg = sqp.MPCConfig.fast(horizon=10, gn_iters=5, variant="smooth")
@@ -602,15 +608,10 @@ def test_torch_sqp_captured_period_launches_on_gpu():
     cl.run_batch(loop, ctrl, x0, refs, device="cuda")   # captures
     period = cl.cached_period(loop, ctrl, B, torch.float32, "cuda")
     assert period.stats["launches"] == {
-        "chol_solve_cuda": 5, "plant_step_cuda": 1, "sqp_build_cuda": 5,
-        "sqp_search_cuda": 5}
-    for name in sqp_ops.SOURCES:
-        build.kernel_runs(name, reset=True)
+        "smallchol": 5, "plant": 1, "sqp_build": 5, "sqp_search": 5}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cl.run_batch(loop, ctrl, x0, refs, device="cuda")
         torch.cuda.synchronize()
-    assert {n: build.kernel_runs(n) for n in sqp_ops.SOURCES} == {
-        "sqp_build": 10, "sqp_search": 10}
     names = [e.name() for e in prof.profiler.kineto_results.events()
              if e.device_type() == torch.autograd.DeviceType.CUDA]
     assert sum("sqp_build_kernel" in n for n in names) == 10

@@ -19,6 +19,7 @@ from forging_control_tpu.nn import lstm as jlstm
 from forging_control_tpu.ops import lstm_pallas
 from forging_control_tpu_torch import interop
 from forging_control_tpu_torch.nn import lstm
+from forging_control_tpu_torch.ops import build
 from forging_control_tpu_torch.ops import lstm as lstm_ops
 from forging_control_tpu_torch.ops import probe
 
@@ -115,7 +116,7 @@ def test_torch_lstm_dispatch_on_cpu_uses_plain():
     params = _jax_params(6, hidden_dim=8, num_layers=2)
     model = interop.lstm_params_from_numpy(params, device="cpu")
     x = torch.from_numpy(np.random.RandomState(7).randn(2, 3, 10, 5))
-    launches = lstm_ops.lstm_forward_cuda.launches
+    launches = build.LAUNCHES.copy()
     got = lstm_ops.lstm_forward(x, *model.weights())
     assert got.shape == (2, 3, 4)
     assert torch.equal(got, lstm_ops.lstm_forward_torch(x, *model.weights()))
@@ -123,7 +124,7 @@ def test_torch_lstm_dispatch_on_cpu_uses_plain():
     np.testing.assert_allclose(single.detach().numpy(),
                                got[0, 0].detach().numpy(), rtol=1e-14,
                                atol=1e-15)
-    assert lstm_ops.lstm_forward_cuda.launches == launches
+    assert build.LAUNCHES == launches
     with pytest.raises(ValueError, match="unsupported device"):
         lstm_ops.lstm_forward(x.to("meta"), *model.weights())
 

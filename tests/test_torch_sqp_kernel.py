@@ -67,7 +67,7 @@ def _kernel_solve(cfg, x0, ref, up, state, **kw):
     """solve_batch through the kernels' bodies on the CPU."""
     mp = pytest.MonkeyPatch()
     try:
-        counts = hk.route_kernels_to_host(mp, sqp_counts=True)
+        counts = hk.route_kernels_to_host(mp)
         out = sqp.solve_batch(cfg, x0, ref, up, state, **kw)
     finally:
         mp.undo()
@@ -116,8 +116,8 @@ def test_torch_sqp_kernels_match_plain(case, dtype):
     u_p, st_p, d_p = sqp.solve_batch(cfg, x0, ref, up, state,
                                      linsolve="plain")
     n = cfg.gn_iters * cfg.al_iters
-    assert counts == {"plant": 0, "ilqr": 0, "sqp_build": n,
-                      "chol_solve": n, "sqp_search": n}
+    assert counts == collections.Counter(sqp_build=n, smallchol=n,
+                                         sqp_search=n)
     assert all(bool(torch.isfinite(a).all()) for a in (u, st.v, st.lam))
     if dtype == "float32":
         _close(u, u_p, 1e-4)
@@ -211,7 +211,7 @@ def test_torch_sqp_rounds_without_gauss_newton_and_polish():
         u_p, st_p, d_p = sqp.solve_batch(cfg, x0, ref, up, state,
                                          linsolve="plain")
         n = cfg.gn_iters * cfg.al_iters
-        assert counts["chol_solve"] == n
+        assert counts["smallchol"] == n
         assert counts["sqp_build"] == counts["sqp_search"] == max(
             n, cfg.al_iters if cfg.gn_iters == 0 else 1)
         for got, want in ((u, u_p), (st.v, st_p.v), (st.lam, st_p.lam),
@@ -242,7 +242,7 @@ def test_torch_sqp_kernel_period_launches_and_never_syncs(monkeypatch):
     (bodies on the CPU), float32 as on the card: a build, B1 and a search
     a Gauss-Newton iteration and K4 once, no host-data tensor, no scalar
     read; and run_batch through them agrees with the plain loop."""
-    counts = hk.route_kernels_to_host(monkeypatch, sqp_counts=True)
+    counts = hk.route_kernels_to_host(monkeypatch)
     cfg = sqp.MPCConfig.fast(horizon=10, gn_iters=5, variant="smooth")
     loop = cl.LoopConfig(t_steps=3, variant="smooth",
                          process_std=(5e-4, 2e-3, 5e4, 5e4, 2e-3))
@@ -258,14 +258,13 @@ def test_torch_sqp_kernel_period_launches_and_never_syncs(monkeypatch):
     ref, w = torch.full((B,), 0.3), torch.full((B, 5), 1e-3)
     body = functools.partial(cl._period, loop, ctrl)
     body(carry, (ref, w, w))                   # warm-up
-    before = dict(counts)
+    before = counts.copy()
     counter = _SyncCounter()
     with counter:
         body(carry, (ref, w, w))
     assert dict(counter.found) == {}
-    assert {k: counts[k] - before[k] for k in counts} == {
-        "plant": 1, "ilqr": 0, "sqp_build": 5, "chol_solve": 5,
-        "sqp_search": 5}
+    assert counts - before == collections.Counter(
+        plant=1, sqp_build=5, smallchol=5, sqp_search=5)
     # The loop (float64) from the reference state, as the datasets start,
     # kernels against the plain loop.
     x0 = torch.tensor(press.X0_REFERENCE, dtype=torch.float64).repeat(B, 1)
@@ -290,10 +289,10 @@ def test_torch_sqp_dispatch_rules(monkeypatch):
     x0, ref, up, _ = _inputs("cold_fast_N10", "float64")
     state = sqp.SolverState(torch.zeros(len(XS), 4, dtype=torch.float64),
                             torch.zeros(len(XS), 8, dtype=torch.float64))
-    launches = sqp_ops.sqp_build_cuda.launches
+    launches = build.LAUNCHES.copy()
     a = sqp.solve_batch(cfg, x0, ref, up, state)
     b = sqp.solve_batch(cfg, x0, ref, up, state, linsolve="plain")
-    assert sqp_ops.sqp_build_cuda.launches == launches
+    assert build.LAUNCHES == launches
     assert torch.equal(a[0], b[0]) and torch.equal(a[1].v, b[1].v)
     with pytest.raises(ValueError, match="unknown linsolve"):
         sqp.solve_batch(cfg, x0, ref, up, state, linsolve="pallas")
@@ -301,12 +300,12 @@ def test_torch_sqp_dispatch_rules(monkeypatch):
         sqp.solve_batch(cfg, x0, ref, up, sqp.SolverState(
             state.v.to("meta"), state.lam.to("meta")))
 
-    counts = hk.route_kernels_to_host(monkeypatch, sqp_counts=True)
+    counts = hk.route_kernels_to_host(monkeypatch)
     sqp.solve_batch(cfg, x0, ref, up, state, linsolve="plain")
     assert counts["sqp_build"] == counts["sqp_search"] == 0
     sqp.solve_batch(cfg, x0, ref, up, state)
     assert counts["sqp_build"] == counts["sqp_search"] == 2
-    assert counts["chol_solve"] == 2
+    assert counts["smallchol"] == 2
     big = sqp.MPCConfig(horizon=26, gn_iters=1, al_iters=1)
     with pytest.raises(ValueError, match="N <= 25"):
         sqp.solve_batch(big, x0, ref, up, sqp.SolverState(

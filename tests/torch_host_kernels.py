@@ -12,6 +12,7 @@ the JAX package without a card.  A test that needs the library skips where
 ``g++`` is missing.
 """
 
+import collections
 import ctypes
 import functools
 import shutil
@@ -65,16 +66,6 @@ def ilqr_host(kcfg, params, x0, ref, u_prev, v, lam,
     return out
 
 
-def team_runs_host(reset=False) -> dict[int, int]:
-    """``ops.ilqr.kernel_team_runs`` for K5's body on the CPU: the host
-    library's count of its launches by team size."""
-    out = (ctypes.c_ulonglong * len(ilqr.TEAMS))()
-    rc = _fn("fct_ilqr_team_runs", (ctypes.POINTER(ctypes.c_ulonglong),
-                                    ctypes.c_int))(out, int(reset))
-    assert rc == 0
-    return dict(zip(ilqr.TEAMS, out))
-
-
 # The SMs of the card whose team rule the routed dispatch follows (an
 # H100's).
 ROUTED_SMS = 132
@@ -124,32 +115,23 @@ def sqp_search_host(kcfg, params, x0, ref, u_prev, v_in, lam_in, x, bufs,
     assert rc == 0
 
 
-def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
+def route_kernels_to_host(monkeypatch) -> collections.Counter:
     """Make the dispatch take the kernels for CPU tensors and run their
     bodies on the CPU: ``build.on_card`` says yes for the CPU, and the CUDA
     wrappers' launches go to the host library (B1's to its plain version).
-    Returns the launch counts of K4 and K5, which the patched wrappers keep,
-    and with ``sqp_counts`` those of the SQP's build, B1 and the search.
-    K5 runs at the team size ``ilqr.team_size`` picks on a card of
-    :data:`ROUTED_SMS` SMs; its sweep and team counters
-    (``ilqr.kernel_sweeps``, ``ilqr.kernel_team_runs``) read the host
-    library's."""
+    The routed launches count in ``build.LAUNCHES`` under the kernels'
+    names, as ``build.launch`` counts them; that counter starts empty here
+    and is returned.  K5 runs at the team size ``ilqr.team_size`` picks on
+    a card of :data:`ROUTED_SMS` SMs; its sweep counter
+    (``ilqr.kernel_sweeps``) reads the host library's."""
     lib()
-    counts = {"plant": 0, "ilqr": 0}
-    every = dict(counts, sqp_build=0, chol_solve=0, sqp_search=0)
-    if sqp_counts:
-        counts = every
+    monkeypatch.setattr(build, "LAUNCHES", collections.Counter())
     on_card = build.on_card
 
     def cpu_is_card(device):
         return device.type == "cpu" or on_card(device)
 
-    def plant_cuda(*a):
-        counts["plant"] += 1
-        return plant_host(*a)
-
-    def ilqr_cuda(*a, team=None):
-        counts["ilqr"] += 1
+    def ilqr_routed(*a, team=None):
         if team is None:
             v = a[5]
             team = ilqr.team_size(*v.shape, v.dtype, ROUTED_SMS)
@@ -157,22 +139,22 @@ def route_kernels_to_host(monkeypatch, sqp_counts=False) -> dict:
 
     def counted(name, fn):
         def run(*a, **kw):
-            every[name] += 1
+            build.LAUNCHES[name] += 1
             return fn(*a, **kw)
         return run
 
     monkeypatch.setattr(build, "on_card", cpu_is_card)
-    monkeypatch.setattr(plant, "plant_step_cuda", plant_cuda)
-    monkeypatch.setattr(ilqr, "ilqr_cuda", ilqr_cuda)
+    monkeypatch.setattr(plant, "plant_step_cuda",
+                        counted("plant", plant_host))
+    monkeypatch.setattr(ilqr, "ilqr_cuda", counted("ilqr", ilqr_routed))
     monkeypatch.setattr(ilqr, "kernel_sweeps", sweeps_host)
-    monkeypatch.setattr(ilqr, "kernel_team_runs", team_runs_host)
     monkeypatch.setattr(sqp, "sqp_build_cuda",
                         counted("sqp_build", sqp_build_host))
     monkeypatch.setattr(sqp, "sqp_search_cuda",
                         counted("sqp_search", sqp_search_host))
     monkeypatch.setattr(sqp_solver, "chol_solve_cuda",
-                        counted("chol_solve", smallchol.chol_solve_torch))
-    return counts
+                        counted("smallchol", smallchol.chol_solve_torch))
+    return build.LAUNCHES
 
 
 def float64(*arrays):
